@@ -1,0 +1,148 @@
+"""The fused round: the whole round loop of a chunk of instances in one call.
+
+Counterpart of the reference ``ops/pallas_round.py`` (the TPU kernel
+``run_chunk``). Two implementations of one function
+``(cfg, inst_ids, key) -> (rounds (B,) int32, decision (B,) uint8)``:
+
+- :func:`run_chunk` launches the hand-written CUDA kernel
+  (``csrc/fused_round.cu``): one CTA per instance, one thread per replica,
+  the state word in a register. It takes CUDA tensors; given a CPU tensor it
+  runs the plain version instead, because there is no kernel to run there.
+- :func:`run_chunk_plain` is the plain torch round driver, the mirror of the
+  reference's ``backends/jax_backend.py::_run_chunk``: a loop of
+  :func:`models.bracha.round_body` over the whole chunk until every instance
+  has decided or the round cap is reached. It runs on any device.
+
+Both are bit-identical to the reference (tests/test_torch_fused_round.py on
+the CPU; chip_smoke.py compares the two on the card).
+
+The kernel's surface is that of the benchmark's main path: protocol bracha,
+delivery urn2, adversary none, faults none, n ≤ 1024 (packing law v1), with
+every init law and both coins. Anything else raises :class:`FusedUnsupported`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from byzantinerandomizedconsensus_tpu_torch.models import bracha
+from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import AdversaryModel
+from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
+
+SUPPORTED = {
+    "protocol": ("bracha",),
+    "delivery": ("urn2",),
+    "adversary": ("none",),
+    "faults": ("none",),
+    "init": ("random", "all0", "all1", "split"),
+    "coin": ("local", "shared"),
+}
+#: Largest n of packing law v1, and the most threads a CTA may have.
+MAX_N = prf.V1_MAX_N
+
+_INIT_CODES = {"random": 0, "all0": 1, "all1": 2, "split": 3}
+_COIN_CODES = {"local": 0, "shared": 1}
+
+#: Launches of the CUDA kernel since the count was last set to 0.
+launches = 0
+
+
+class FusedUnsupported(RuntimeError):
+    """A config outside the fused kernel's surface — raised by name, never a
+    silent fallback to another code path."""
+
+
+def check_fused_supported(cfg) -> None:
+    """Reject configs outside the surface with one message naming it."""
+    problems = [f"{field}={getattr(cfg, field)!r}"
+                for field, allowed in SUPPORTED.items()
+                if getattr(cfg, field) not in allowed]
+    if cfg.n > MAX_N:
+        problems.append(f"n={cfg.n}")
+    if problems:
+        surface = ", ".join(f"{k} in {v}" for k, v in SUPPORTED.items())
+        raise FusedUnsupported(
+            f"the fused round does not support {', '.join(problems)}; its "
+            f"surface is {surface}, n <= {MAX_N}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = _build.load("fused_round").brc_fused_round_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def run_chunk(cfg, inst_ids: torch.Tensor, key=None):
+    """Simulate one chunk with the CUDA kernel; returns ``(rounds, decision)``.
+
+    ``inst_ids`` (B,) int32 on a CUDA device; ``key`` the ``(k0, k1)`` PRF
+    key (default: from ``cfg.seed``) — an argument of the kernel, so one
+    build serves every seed. A CPU ``inst_ids`` runs :func:`run_chunk_plain`.
+    """
+    global launches
+    check_fused_supported(cfg)
+    if inst_ids.device.type == "cpu":
+        return run_chunk_plain(cfg, inst_ids, key)
+    if inst_ids.device.type != "cuda":
+        raise ValueError(f"run_chunk takes CUDA or CPU tensors, got {inst_ids.device}")
+    if inst_ids.dtype != torch.int32 or inst_ids.dim() != 1 \
+            or not inst_ids.is_contiguous():
+        raise ValueError("inst_ids must be a contiguous 1-D int32 tensor")
+    k0, k1 = prf.seed_key(cfg.seed if key is None else key)
+    B, dev = inst_ids.shape[0], inst_ids.device
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    decision = torch.empty(B, dtype=torch.uint8, device=dev)
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(inst_ids.data_ptr(), rounds.data_ptr(), decision.data_ptr(),
+                    B, cfg.n, cfg.f, cfg.round_cap,
+                    _INIT_CODES[cfg.init], _COIN_CODES[cfg.coin], k0, k1, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_round kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return rounds, decision
+
+
+def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
+    """The plain torch round driver; returns ``(rounds, decision)`` on
+    ``inst_ids.device``.
+
+    ``stats``, when a dict, receives the work the run needed, counted over
+    the instances still running in each round: ``instance_rounds``,
+    ``chain_trips`` (urn2 chain draws) and ``chain_seeds`` (segments with at
+    least one draw, each one PRF word) — the inputs of the kernel's bound.
+    """
+    check_fused_supported(cfg)
+    seed = cfg.seed if key is None else prf.seed_key(key)
+    adv = AdversaryModel(cfg)
+    setup = adv.setup(seed, inst_ids)
+    faulty = setup["faulty"]
+    st = state_mod.init_state(cfg, seed, inst_ids)
+    done_at = torch.full(inst_ids.shape, -1, dtype=torch.int32,
+                         device=inst_ids.device)
+    r = 0
+    while r < cfg.round_cap and not bool((done_at >= 0).all()):
+        running = done_at < 0
+        round_stats = {} if stats is not None else None
+        st = bracha.round_body(cfg, seed, inst_ids, r, st, adv, setup,
+                               stats=round_stats)
+        if stats is not None:
+            round_stats["instance_rounds"] = torch.ones_like(running, dtype=torch.int64)
+            for k, v in round_stats.items():
+                stats[k] = stats.get(k, 0) + int((v * running).sum())
+        done_now = state_mod.all_correct_decided(st, faulty)
+        done_at = torch.where(running & done_now,
+                              torch.full_like(done_at, r + 1), done_at)
+        r += 1
+    done = done_at >= 0
+    rounds = torch.where(done, done_at, torch.full_like(done_at, cfg.round_cap))
+    decision = state_mod.extract_decision(st, faulty, done)
+    return rounds, decision
