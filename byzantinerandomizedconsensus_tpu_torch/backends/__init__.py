@@ -1,5 +1,5 @@
-"""Backend registry of the port: ``torch`` (the fused CUDA kernel on the card,
-or the plain torch round driver)."""
+"""Backend registry of the port: ``torch`` (the CUDA kernels on the card, or
+the plain torch round driver)."""
 
 from byzantinerandomizedconsensus_tpu_torch.backends.base import (
     SimResult,
@@ -10,8 +10,8 @@ from byzantinerandomizedconsensus_tpu_torch.backends.base import (
 
 
 def _torch(**options):
-    """``torch`` — ``TorchBackend(kernel=..., device=...)``; the default is the
-    fused kernel on CUDA."""
+    """``torch`` — ``TorchBackend(kernel=..., device=...)``; the default is
+    CUDA, with the kernel chosen by the config's delivery law."""
     from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import (
         TorchBackend)
 

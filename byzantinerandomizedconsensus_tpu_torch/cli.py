@@ -1,14 +1,18 @@
-"""Command line of the port: run a preset through the torch backend and print
-the same JSON summary as the reference CLI's ``run``.
+"""Command line of the port: run a preset or a config-5 sweep point through
+the torch backend and print the same JSON summary as the reference CLI's
+``run``.
 
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4 \
         --instances 256 --device cpu --hist
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512 \
+        --delivery keys
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -18,7 +22,8 @@ import numpy as np
 from byzantinerandomizedconsensus_tpu_torch.backends import get_backend
 from byzantinerandomizedconsensus_tpu_torch.backends.base import SimResult
 from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import KERNELS
-from byzantinerandomizedconsensus_tpu_torch.config import PRESETS, preset
+from byzantinerandomizedconsensus_tpu_torch.config import (
+    DELIVERY_KINDS, PRESETS, preset, sweep_point)
 
 
 def round_histogram(res: SimResult) -> np.ndarray:
@@ -66,14 +71,20 @@ def summary(res: SimResult) -> dict:
 
 
 def cmd_run(args) -> int:
-    overrides = {} if args.instances is None else {"instances": args.instances}
-    cfg = preset(args.preset, **overrides)
+    if args.sweep_point is not None:
+        cfg = sweep_point(args.sweep_point)
+    else:
+        cfg = preset(args.preset or "config4")
+    overrides = {k: v for k, v in (("instances", args.instances),
+                                   ("delivery", args.delivery),
+                                   ("adversary", args.adversary)) if v is not None}
+    cfg = dataclasses.replace(cfg, **overrides).validate()
     backend = get_backend("torch", device=args.device, kernel=args.kernel)
-    backend.prepare()
+    backend.prepare(cfg)
     res = backend.timed_run(cfg)
     out = summary(res)
     out["backend"] = "torch"
-    out["kernel"] = backend.kernel
+    out["kernel"] = backend.kernel_for(cfg)
     out["device"] = str(backend.device)
     if backend.device.type == "cuda":
         import torch
@@ -88,14 +99,27 @@ def cmd_run(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="byzantinerandomizedconsensus_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="run a preset through the torch backend")
-    run.add_argument("--preset", choices=sorted(PRESETS), default="config4")
+    run = sub.add_parser("run", help="run a preset or a config-5 sweep point "
+                         "through the torch backend")
+    which = run.add_mutually_exclusive_group()
+    which.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                       help="a benchmark preset (default config4)")
+    which.add_argument("--sweep-point", type=int, default=None, metavar="N",
+                       help="config 5's sweep point at n=N (bracha, f=(N-1)//3, "
+                            "adaptive, shared coin, 2000 instances)")
     run.add_argument("--instances", type=int, default=None,
-                     help="run only the first N instances of the preset")
+                     help="run only the first N instances of the config")
+    run.add_argument("--delivery", choices=DELIVERY_KINDS, default=None,
+                     help="override the config's delivery law (keys, urn: "
+                          "the per-step kernels)")
+    run.add_argument("--adversary", default=None,
+                     help="override the config's adversary")
     run.add_argument("--device", default="cuda",
                      help="cuda (default; raises with no card) or cpu")
     run.add_argument("--kernel", choices=KERNELS, default=None,
-                     help="fused (the CUDA kernel; default on cuda) or plain")
+                     help="fused (the round-loop kernel; default on cuda for "
+                          "urn2), step (the per-step kernels; default on cuda "
+                          "for keys and urn) or plain (torch ops)")
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
     run.set_defaults(fn=cmd_run)

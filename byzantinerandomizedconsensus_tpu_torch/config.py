@@ -141,3 +141,23 @@ def preset(name: str, **overrides) -> SimConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg.validate()
+
+
+def _f_opt(n: int) -> int:
+    return (n - 1) // 3
+
+
+# Config 5 is a sweep (spec §7): bracha, adaptive adversary, shared coin.
+SWEEP_NS = (128, 256, 384, 512, 640, 768, 896, 1024)
+SWEEP_INSTANCES = 2_000
+# The single sweep point that stands in for config 5 where one config is
+# needed: benchmark n, the headline scale.
+SWEEP_POINT_N = 512
+
+
+def sweep_point(n: int, seed: int = 0, instances: int = SWEEP_INSTANCES) -> SimConfig:
+    return SimConfig(
+        protocol="bracha", n=n, f=_f_opt(n), instances=instances,
+        adversary="adaptive", coin="shared", seed=seed,
+        delivery=PRODUCT_DELIVERY,
+    ).validate()

@@ -1,29 +1,41 @@
 """Delivery-count dispatch of the round body, in torch.
 
-The port's counterpart of the reference ``models/delivery.py::make_counts``,
-count-level branch only: each broadcast step's ``(c0, c1)`` comes from the
-registered count-level sampler. The port has §4b-v2 (``urn2``); every other
+The port's counterpart of the reference ``models/delivery.py::make_counts``.
+One closure decides, per step, which delivery and tally implementation runs:
+a caller-supplied ``counts_fn`` (the per-step CUDA kernels,
+``ops/keys_step.py`` and ``ops/urn_step.py``), the registered count-level
+sampler (§4b ``urn``, §4b-v2 ``urn2``), or the spec-§4 keys law (masks and
+tally, chunked: ``ops/keys_step.py::step_counts_plain``). Every other
 delivery law raises by name.
 """
 
 from __future__ import annotations
 
-from byzantinerandomizedconsensus_tpu_torch.ops import urn2
+from byzantinerandomizedconsensus_tpu_torch.ops import keys_step, urn, urn2
 
-_COUNTS_FNS = {"urn2": urn2.counts_fn}
+_COUNTS_FNS = {"urn": urn.counts_fn, "urn2": urn2.counts_fn}
+DELIVERIES = ("keys",) + tuple(_COUNTS_FNS)
 
 
-def make_counts(cfg, seed, inst_ids, rnd, stats=None):
-    """Build the ``counts(t, values, silent) -> (c0, c1)`` closure a round
-    body calls once per broadcast step. ``stats``, when a dict, collects the
-    sampler's cost counters (see :func:`urn2.counts_fn`)."""
-    if cfg.delivery not in _COUNTS_FNS:
+def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None):
+    """Build the ``counts(t, honest, values, silent, bias) -> (c0, c1)``
+    closure a round body calls once per broadcast step. ``stats``, when a
+    dict, collects the count-level sampler's cost counters; a custom
+    ``counts_fn`` has none."""
+    if cfg.delivery not in DELIVERIES:
         raise NotImplementedError(
             f"delivery={cfg.delivery!r} is not ported yet; the port runs "
-            f"delivery in {tuple(_COUNTS_FNS)}")
-    fn = _COUNTS_FNS[cfg.delivery]
+            f"delivery in {DELIVERIES}")
 
-    def counts(t, values, silent):
-        return fn(cfg, seed, inst_ids, rnd, t, values, silent, stats=stats)
+    def counts(t, honest, values, silent, bias):
+        if counts_fn is not None:
+            return counts_fn(cfg, seed, inst_ids, rnd, t, values, silent,
+                             setup["faulty"], honest)
+        if cfg.count_level:
+            return _COUNTS_FNS[cfg.delivery](cfg, seed, inst_ids, rnd, t, values,
+                                             silent, setup["faulty"], honest,
+                                             stats=stats)
+        return keys_step.step_counts_plain(cfg, seed, inst_ids, rnd, t, values,
+                                           silent, setup["faulty"], bias)
 
     return counts

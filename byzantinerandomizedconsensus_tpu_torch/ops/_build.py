@@ -27,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
 #: The CUDA sources of the port, one library each.
-KERNELS = ("fused_round",)
+KERNELS = ("fused_round", "keys_step", "urn_step")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

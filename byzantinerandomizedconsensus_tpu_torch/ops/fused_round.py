@@ -8,10 +8,10 @@ Counterpart of the reference ``ops/pallas_round.py`` (the TPU kernel
   (``csrc/fused_round.cu``): one CTA per instance, one thread per replica,
   the state word in a register. It takes CUDA tensors; given a CPU tensor it
   runs the plain version instead, because there is no kernel to run there.
-- :func:`run_chunk_plain` is the plain torch round driver, the mirror of the
-  reference's ``backends/jax_backend.py::_run_chunk``: a loop of
-  :func:`models.bracha.round_body` over the whole chunk until every instance
-  has decided or the round cap is reached. It runs on any device.
+- :func:`run_chunk_plain` is the plain torch round driver
+  (:func:`models.driver.run_chunk`, the mirror of the reference's
+  ``backends/jax_backend.py::_run_chunk``) on the kernel's surface. It runs
+  on any device.
 
 Both are bit-identical to the reference (tests/test_torch_fused_round.py on
 the CPU; chip_smoke.py compares the two on the card).
@@ -28,9 +28,7 @@ import functools
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models import bracha
-from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
-from byzantinerandomizedconsensus_tpu_torch.models.adversaries import AdversaryModel
+from byzantinerandomizedconsensus_tpu_torch.models import driver
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
 
 SUPPORTED = {
@@ -112,7 +110,8 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None):
 
 
 def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
-    """The plain torch round driver; returns ``(rounds, decision)`` on
+    """The plain torch round driver (:func:`models.driver.run_chunk` with
+    the urn2 law's plain sampler); returns ``(rounds, decision)`` on
     ``inst_ids.device``.
 
     ``stats``, when a dict, receives the work the run needed, counted over
@@ -121,28 +120,4 @@ def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
     least one draw, each one PRF word) — the inputs of the kernel's bound.
     """
     check_fused_supported(cfg)
-    seed = cfg.seed if key is None else prf.seed_key(key)
-    adv = AdversaryModel(cfg)
-    setup = adv.setup(seed, inst_ids)
-    faulty = setup["faulty"]
-    st = state_mod.init_state(cfg, seed, inst_ids)
-    done_at = torch.full(inst_ids.shape, -1, dtype=torch.int32,
-                         device=inst_ids.device)
-    r = 0
-    while r < cfg.round_cap and not bool((done_at >= 0).all()):
-        running = done_at < 0
-        round_stats = {} if stats is not None else None
-        st = bracha.round_body(cfg, seed, inst_ids, r, st, adv, setup,
-                               stats=round_stats)
-        if stats is not None:
-            round_stats["instance_rounds"] = torch.ones_like(running, dtype=torch.int64)
-            for k, v in round_stats.items():
-                stats[k] = stats.get(k, 0) + int((v * running).sum())
-        done_now = state_mod.all_correct_decided(st, faulty)
-        done_at = torch.where(running & done_now,
-                              torch.full_like(done_at, r + 1), done_at)
-        r += 1
-    done = done_at >= 0
-    rounds = torch.where(done, done_at, torch.full_like(done_at, cfg.round_cap))
-    decision = state_mod.extract_decision(st, faulty, done)
-    return rounds, decision
+    return driver.run_chunk(cfg, inst_ids, key, stats=stats)

@@ -38,6 +38,11 @@ FUSED_STATE_BITS = {"est": (0, 2), "decided": (2, 1),
 
 # Range reduction of the urn-family draws: (pre_shift, post_shift) per law.
 RED_SHIFTS = {1: (10, 22), 2: (12, 20), 3: (12, 20)}
+# Width of the replica-index field at the bottom of the spec §4 combined
+# scheduling key and of the §3.2 faulty-rank key, per law; KEY_MASK keeps the
+# rank bits above it.
+KEY_LOW_BITS = {1: 10, 2: 12, 3: 20}
+KEY_MASK = {p: (MASK32 >> low) << low for p, low in KEY_LOW_BITS.items()}
 
 
 def pack_version(n) -> int:

@@ -1,32 +1,112 @@
-"""Urn delivery (spec/PROTOCOL.md §4b) — the per-receiver class state, in torch.
+"""Urn delivery (spec/PROTOCOL.md §4b) — count-level message scheduling, in torch.
 
-The port's counterpart of the reference ``ops/urn.py::lane_setup`` on the path
-with no partition and no two-faced values: every receiver sees the same wire
-value from each sender, so one set of global class totals serves all lanes.
+The port's counterpart of the reference ``ops/urn.py`` on the path with no
+partition and no two-faced values: every receiver sees the same wire value
+from each sender, so one set of global class totals serves all lanes. Each
+receiver drops ``D = L - (n-f-1)`` of its ``L`` live messages, drawn
+sequentially without replacement from an urn of (stratum, value) classes,
+the biased stratum first. :func:`counts_fn` is the plain version of the urn
+kernel (``ops/urn_step.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import observed_minority
+from byzantinerandomizedconsensus_tpu_torch.ops import prf
 
-def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor):
+
+def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
+               honest=None):
     """Shared §4b/§4b-v2 per-lane class state.
 
-    ``values`` (B, n) wire values in {0, 1, 2}; ``silent`` (B, n) bool.
-    Returns ``(own_val, m, L, D)``: the (B, n) own wire value, the per-lane
-    live class counts ``m[w]`` (B, n) int32 over senders ``u != v``, and the
-    urn totals ``L`` (live messages) and ``D`` (drops, ``L − (n−f−1)``
-    floored at 0).
+    ``values`` (B, n) wire values in {0, 1, 2}; ``silent`` (B, n) bool;
+    ``faulty``/``honest`` (B, n), read only under ``adaptive_min``. Returns
+    ``(own_val, m, st, L, D)``: the (B, n) own wire value, the per-lane live
+    class counts ``m[w]`` (B, n) int32 over senders ``u != v``, the stratum
+    flags ``st[w]`` (bool, broadcastable to (B, n); ``None`` without strata),
+    and the urn totals ``L`` (live messages) and ``D`` (drops,
+    ``L − (n−f−1)`` floored at 0).
     """
     live = ~silent
     own_val = values
     m = []
     for w in (0, 1, 2):
-        is_w = values == w
-        total = (live & is_w).sum(dim=-1, dtype=torch.int32)[:, None]
-        m.append(total - (live & is_w).to(torch.int32))
+        is_w = live & (values == w)
+        total = is_w.sum(dim=-1, dtype=torch.int32)[:, None]
+        m.append(total - is_w.to(torch.int32))
+    st = None
+    if cfg.adversary == "adaptive":
+        # biased(w, v) = (w == 2) | (w != pref(v)), pref(v) = v >= (n+1)/2.
+        h_lane = (torch.arange(cfg.n, device=values.device)
+                  >= (cfg.n_eff + 1) // 2)[None, :]
+        st = [h_lane, ~h_lane, torch.ones_like(h_lane)]
+    elif cfg.adversary == "adaptive_min":
+        minority = observed_minority(honest, faulty)[:, None]
+        st = [minority != 0, minority != 1, torch.ones_like(minority, dtype=torch.bool)]
     L = m[0] + m[1] + m[2]
-    k = cfg.n_eff - cfg.f - 1
-    D = torch.clamp(L - k, min=0)
-    return own_val, m, L, D
+    D = torch.clamp(L - (cfg.n_eff - cfg.f - 1), min=0)
+    return own_val, m, st, L, D
+
+
+def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
+              honest=None, stats=None):
+    """(c0, c1) delivered-value counts per receiver lane — spec §4b.
+
+    ``values`` (B, n) wire values, ``silent`` (B, n) bool (validation
+    silences included). Returns two (B, n) int32. ``stats``, when a dict,
+    gains ``urn_draws`` (B,) int64, the draws the law needs (the sum of D).
+    All lanes step together to the batch maximum of D; a lane past its own D
+    is masked, which leaves its counts as the reference's masked tail does.
+    """
+    own_val, m, st, L, D = lane_setup(cfg, values, silent, faulty, honest)
+    if stats is not None:
+        stats["urn_draws"] = stats.get("urn_draws", 0) + D.sum(dim=-1, dtype=torch.int64)
+    inst = inst_ids.to(torch.int64)[:, None]
+    recv = torch.arange(cfg.n, dtype=torch.int64, device=values.device)[None, :]
+    s = prf.prf_u32(seed, inst, rnd, t, recv, 0, prf.URN, pack=cfg.pack_version)
+    rs, rd = prf.RED_SHIFTS[cfg.pack_version]
+    r0, r1, r2 = (x.to(torch.int64) for x in m)
+    L, D = L.to(torch.int64), D.to(torch.int64)
+
+    def draw(s):
+        s = (prf.mul32(s, prf.URN_LCG_A) + prf.URN_LCG_C) & prf.MASK32
+        return s, (s ^ (s >> 16)) >> rs
+
+    def step(j, s, r0, r1, r2):
+        """General (two-stratum) draw — spec §4b verbatim."""
+        s, u = draw(s)
+        active = j < D
+        b_rem = (torch.where(st[0], r0, 0) + torch.where(st[1], r1, 0)
+                 + torch.where(st[2], r2, 0))
+        in_biased = b_rem > 0
+        R_cur = torch.where(in_biased, b_rem, r0 + r1 + r2 - b_rem)
+        d = (u * R_cur) >> rd
+        e0 = torch.where(st[0] == in_biased, r0, 0)
+        e1 = torch.where(st[1] == in_biased, r1, 0)
+        pick0 = d < e0
+        pick1 = ~pick0 & (d < e0 + e1)
+        pick2 = ~pick0 & ~pick1
+        return (s, r0 - (pick0 & active).to(torch.int64),
+                r1 - (pick1 & active).to(torch.int64),
+                r2 - (pick2 & active).to(torch.int64))
+
+    def step_single(j, s, r0, r1, r2):
+        """Single-stratum draw (no adaptive strata): the urn size is L − j,
+        and the ⊥ class is never read by the outputs, so it is not tracked."""
+        s, u = draw(s)
+        active = j < D
+        d = (u * (L - j)) >> rd
+        pick0 = d < r0
+        pick1 = ~pick0 & (d < r0 + r1)
+        return (s, r0 - (pick0 & active).to(torch.int64),
+                r1 - (pick1 & active).to(torch.int64), r2)
+
+    fn = step_single if st is None else step
+    s = s.expand(r0.shape)
+    for j in range(int(D.max()) if D.numel() else 0):
+        s, r0, r1, r2 = fn(j, s, r0, r1, r2)
+    c0 = (r0 + (own_val == 0).to(torch.int64)).to(torch.int32)
+    c1 = (r1 + (own_val == 1).to(torch.int64)).to(torch.int32)
+    return c0, c1

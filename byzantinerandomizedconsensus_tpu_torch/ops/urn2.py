@@ -56,18 +56,21 @@ def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None):
     return torch.where(is_comp, Dr - a, a)
 
 
-def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, stats=None):
+def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
+              honest=None, stats=None):
     """(c0, c1) delivered-value counts per receiver lane — spec §4b-v2.
 
     ``values`` (B, n) wire values, ``silent`` (B, n) bool (validation
     silences included). Returns two (B, n) int32. The receiver's own value
-    is added back: the urn ranges over the other senders only.
+    is added back: the urn ranges over the other senders only. ``faulty``
+    and ``honest`` complete the round body's hook; the non-adaptive branch
+    reads neither.
     """
     if cfg.adversary in ("adaptive", "adaptive_min"):
         raise NotImplementedError(
             f"adversary={cfg.adversary!r} needs the two-stratum §4b-v2 "
             "sampler, which is not ported yet")
-    own_val, m, L, D = urn.lane_setup(cfg, values, silent)
+    own_val, m, _, L, D = urn.lane_setup(cfg, values, silent)
     Lr, Dr = L, D
     d = []
     for w in (0, 1):

@@ -7,27 +7,47 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``). Imports nothing of JAX.
 Phases, in order; any failure exits nonzero and prints no result:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build every kernel from ``byzantinerandomizedconsensus_tpu_torch/csrc``;
-3. each kernel against its plain torch version on the card, on a grid of
-   small configs (every init law, both coins, capped instances) and at
+2. build every kernel from ``byzantinerandomizedconsensus_tpu_torch/csrc``
+   (``fused_round``, ``keys_step``, ``urn_step``; one ``nvcc`` each, in
+   parallel) and print each one's ptxas registers;
+3. ``fused_round`` against its plain torch version on the card, on a grid
+   of small configs (every init law, both coins, capped instances) and at
    config4's shape, with tolerance 0: the outputs are integers drawn from
    one counter-based PRF, so they must be identical;
-4. the main path: preset config4, all 100,000 instances, through
+4. the fused main path: preset config4, all 100,000 instances, through
    ``get_backend("torch")``, held against the reference histograms; its
    throughput, best of 5 after a warm-up; the kernel's and the plain
    version's times on the main path's inputs, and the kernel's bound;
-5. a ``{"kernels": [...]}`` line, the card line, and last
+5. ``keys_step`` and ``urn_step`` against their plain versions, tolerance
+   0: per broadcast step through the real round body on a grid (n in
+   4..1024, adversary none / adaptive / adaptive_min, every init, both
+   coins, rounds 0 and 1), then per driver, the step path against the plain
+   path to termination;
+6. the per-step main path: config 5's sweep point at n=512 (bracha, f=170,
+   adaptive, shared coin, 2000 instances) under delivery keys and under
+   urn, through ``get_backend("torch", kernel="step")``, held per instance
+   against the committed reference results (``artifacts/sweep_keys``,
+   ``artifacts/sweep_urn``); the four goldens of ``spec/golden/golden.npz``
+   on this surface through the kernels; throughput, best of 5 after a
+   warm-up; each kernel's mean time per launch, launches per run and bound,
+   and the plain path's time;
+7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
 
 # The reference result of config4 (seed 0, 100,000 instances): the JAX
 # package's ``cli run --preset config4 --hist``, identical on a TPU v5e and a
@@ -35,6 +55,24 @@ import torch
 CONFIG4_DECISIONS = [47697, 52303, 0]
 CONFIG4_ROUNDS_HEAD = [0, 57987, 42008, 5]
 METRIC = "consensus_instances_per_sec@n512_f170_shared_coin"
+# Config 5 at n=512 under the keys and urn laws: the JAX package's sweep
+# results, per instance (seed 0, 2000 instances).
+SWEEP_FILES = {
+    "keys": "artifacts/sweep_keys/bracha_n512_f170_adaptive_shared_s0_i*.npz",
+    "urn": "artifacts/sweep_urn/bracha_n512_f170_adaptive_shared_urn_s0_i0-2000.npz",
+}
+CONFIG5_DECISIONS = [890, 1110, 0]
+CONFIG5_ROUNDS_HEAD = [0, 73, 1927]
+# The goldens of spec/golden/golden.npz on the per-step surface, with the
+# configs of spec/golden/regen.py (delivery "keys" is SimConfig's default).
+GOLDENS = {
+    "bracha_adaptive": dict(n=13, f=4, adversary="adaptive", seed=3, delivery="keys"),
+    "bracha_adaptive_min": dict(n=13, f=4, adversary="adaptive_min", seed=7,
+                                delivery="keys"),
+    "urn_bracha_adaptive": dict(n=13, f=4, adversary="adaptive", seed=6, delivery="urn"),
+    "urn_bracha_adaptive_min": dict(n=13, f=4, adversary="adaptive_min", seed=8,
+                                    delivery="urn"),
+}
 
 # H100 SXM peaks for the bound: HBM3 at 3.35 TB/s (NVIDIA data sheet). For
 # integer work, each of an SM's 4 schedulers issues one 32-lane warp
@@ -44,13 +82,29 @@ METRIC = "consensus_instances_per_sec@n512_f170_shared_coin"
 # takes this issue peak rather than the 64-lane INT32 rate alone.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 128 * 1.98e9
-# Integer operations per unit of work, counted from csrc/fused_round.cuh:
-# a threefry word is 20 rounds of (add, rotate, xor), 5 key injections of
-# two adds and the two initial adds; a chain draw is the LCG multiply-add,
-# the shift-xor, the range reduction (shift, subtract, multiply, shift) and
-# the compare-and-add.
+# Integer operations per unit of work, counted from the .cuh sources:
+# a threefry word (prf.cuh) is 20 rounds of (add, rotate, xor), 5 key
+# injections of two adds and the two initial adds; a urn2 chain draw
+# (fused_round.cuh) is the LCG multiply-add, the shift-xor, the range
+# reduction (shift, subtract, multiply, shift) and the compare-and-add.
 OPS_PER_PRF_WORD = 20 * 3 + 5 * 2 + 2
 OPS_PER_CHAIN_DRAW = 9
+# The keys law: each (recv, send) pair needs one threefry word, and picking
+# the n - f smallest of a row's distinct keys needs about one compare per
+# key. The key assembly and the tally are left out, so the bound stays a
+# least time. keys_step.cuh's own selection spends 22 search passes of a
+# compare and an add per pair: that is the design's cost, printed beside
+# the bound and not counted in it.
+OPS_PER_KEY_PAIR = OPS_PER_PRF_WORD + 1
+SEARCH_OPS_PER_KEY_PAIR = 22 * 2
+# urn_step.cuh: a drop draw is the LCG multiply-add, the shift-xor-shift,
+# the range multiply and shift, and two compares and a decrement (the
+# two-stratum draw does more; the bound counts the single-stratum work).
+OPS_PER_URN_DRAW = 10
+
+STEP_LAWS = {"keys": "keys_step", "urn": "urn_step"}
+STEP_REPLACES = {"keys_step": "byzantinerandomizedconsensus_tpu/ops/pallas_tally.py:326",
+                 "urn_step": "byzantinerandomizedconsensus_tpu/ops/pallas_urn.py:291"}
 
 
 def fail(msg: str) -> None:
@@ -119,6 +173,259 @@ def compare(cfg, ids):
     return rp, dp
 
 
+def reset_launches():
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, keys_step, urn_step
+
+    for mod in (fused_round, keys_step, urn_step):
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, keys_step, urn_step
+
+    return {"fused_round": fused_round.launches, "keys_step": keys_step.launches,
+            "urn_step": urn_step.launches}
+
+
+def step_module(law):
+    from byzantinerandomizedconsensus_tpu_torch.ops import keys_step, urn_step
+
+    return {"keys": keys_step, "urn": urn_step}[law]
+
+
+def plain_step(law, cfg, seed, ids, rnd, t, values, silent, faulty, honest):
+    mod = step_module(law)
+    if law == "keys":
+        return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty)
+    return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+
+
+def step_counts_max_err(a, b) -> int:
+    return max(int((a[0] - b[0]).abs().max()), int((a[1] - b[1]).abs().max()))
+
+
+def checking_counts_fn(law, seen):
+    """A round-body delivery hook that runs the kernel and the plain version
+    on the same inputs, fails on any difference, and returns the kernel's."""
+    mod = step_module(law)
+
+    def counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest):
+        got = mod.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+        want = plain_step(law, cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+        err = step_counts_max_err(got, want)
+        if err != 0:
+            fail(f"{STEP_LAWS[law]} differs from plain on {cfg}, round {rnd}, "
+                 f"step {t}: max abs err {err}")
+        seen["steps"] += 1
+        return got
+
+    return counts_fn
+
+
+def step_grid(law):
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    out = []
+    for n in (4, 10, 16, 64, 128, 200, 512, 1024):
+        for adversary in ("none", "adaptive", "adaptive_min"):
+            for init in ("random", "all0", "all1", "split"):
+                for coin in ("shared", "local"):
+                    out.append(SimConfig(
+                        protocol="bracha", n=n, f=(n - 1) // 3, instances=1000,
+                        adversary=adversary, coin=coin, init=init, delivery=law,
+                        seed=len(out) + 31 * n).validate())
+    return out
+
+
+def step_phase(dev):
+    """Phase 5: the per-step kernels against plain, per step and per driver."""
+    from byzantinerandomizedconsensus_tpu_torch.models import driver
+
+    for law, name in STEP_LAWS.items():
+        t0 = time.perf_counter()
+        seen = {"steps": 0}
+        grid = step_grid(law)
+        for cfg in grid:
+            B = 16 if cfg.n <= 200 else (8 if cfg.n <= 512 else 4)
+            ids = torch.arange(B, dtype=torch.int32, device=dev) * 37
+            driver.run_chunk(dataclasses.replace(cfg, round_cap=2), ids,
+                             counts_fn=checking_counts_fn(law, seen))
+        say(f"[steps] {name} == plain on {seen['steps']} steps of {len(grid)} "
+            f"configs (n in 4..1024, adversary none/adaptive/adaptive_min, "
+            f"every init, both coins, rounds 0-1) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        runs = 0
+        for cfg in grid:
+            if cfg.init != "random" or cfg.coin != "shared":
+                continue
+            ids = torch.arange(64 if cfg.n <= 200 else 16, dtype=torch.int32, device=dev)
+            rk, dk = driver.run_chunk(cfg, ids, counts_fn=step_module(law).counts_fn)
+            rp, dp = driver.run_chunk(cfg, ids)
+            if not (torch.equal(rk, rp) and torch.equal(dk, dp)):
+                fail(f"the {name} driver differs from the plain driver on {cfg}")
+            runs += 1
+        say(f"[driver] step path == plain path under {law} on {runs} configs "
+            f"(to termination) in {time.perf_counter() - t0:.1f} s")
+
+
+def load_sweep(law):
+    paths = sorted(ROOT.glob(SWEEP_FILES[law]))
+    if not paths:
+        fail(f"no reference results at {SWEEP_FILES[law]}")
+    parts = [np.load(p) for p in paths]
+    ids = np.concatenate([z["inst_ids"] for z in parts])
+    order = np.argsort(ids)
+    return (ids[order], np.concatenate([z["rounds"] for z in parts])[order],
+            np.concatenate([z["decision"] for z in parts])[order])
+
+
+def recorded_launches(cfg, law, dev):
+    """The inputs of every kernel launch of one run of ``cfg`` (the main
+    path's chunk), in order."""
+    from byzantinerandomizedconsensus_tpu_torch.models import driver
+
+    calls = []
+    mod = step_module(law)
+
+    def counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest):
+        calls.append((seed, ids, rnd, t, values.clone(), silent.clone(), faulty, honest.clone()))
+        return mod.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+
+    driver.run_chunk(cfg, torch.arange(cfg.instances, dtype=torch.int32, device=dev),
+                     counts_fn=counts_fn)
+    return calls
+
+
+def step_bound(law, cfg, call):
+    """(operations, bytes) the step must do on these inputs."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import urn
+
+    seed, ids, rnd, t, values, silent, faulty, honest = call
+    B, n = values.shape
+    if law == "keys":
+        ops = B * n * n * OPS_PER_KEY_PAIR
+        nbytes = B * (4 + 3 * n + 8 * n)
+    else:
+        D = urn.lane_setup(cfg, values, silent, faulty, honest)[4]
+        ops = B * n * OPS_PER_PRF_WORD + int(D.sum()) * OPS_PER_URN_DRAW
+        planes = 3 if cfg.adversary == "adaptive_min" else 2
+        nbytes = B * (4 + planes * n + 8 * n)
+    return ops, nbytes
+
+
+def config5_phase(dev, card):
+    """Phase 6: config 5 at n=512 under keys and urn through the step
+    kernels; returns the kernels-line entries of keys_step and urn_step."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.cli import (
+        decision_histogram, round_histogram)
+    from byzantinerandomizedconsensus_tpu_torch.config import (
+        SWEEP_POINT_N, SimConfig, sweep_point)
+
+    entries = []
+    for law, name in STEP_LAWS.items():
+        cfg = dataclasses.replace(sweep_point(SWEEP_POINT_N), delivery=law).validate()
+        want_ids, want_rounds, want_dec = load_sweep(law)
+        if not np.array_equal(want_ids, np.arange(cfg.instances)):
+            fail(f"the reference results under {law} do not cover ids 0..{cfg.instances - 1}")
+        backend = get_backend("torch", kernel="step")
+        backend.prepare(cfg)
+        reset_launches()
+        res = backend.timed_run(cfg)
+        launches = read_launches()
+        if launches[name] < 1:
+            fail(f"config 5 under {law} did not launch {name}")
+        bad = (res.rounds != want_rounds) | (res.decision != want_dec)
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            fail(f"config 5 under {law} differs from the reference on {int(bad.sum())} "
+                 f"instances; first id {i}: ({res.rounds[i]}, {res.decision[i]}) vs "
+                 f"({want_rounds[i]}, {want_dec[i]})")
+        dh = decision_histogram(res).tolist()
+        rh = round_histogram(res).tolist()
+        if dh != CONFIG5_DECISIONS or rh[:3] != CONFIG5_ROUNDS_HEAD or any(rh[3:]):
+            fail(f"config 5 under {law}: histograms {dh}, {rh[:6]}")
+        say(f"[main] config 5, n=512, {law}: {len(res.inst_ids)} instances equal to "
+            f"the reference per instance; decision_histogram {dh}, "
+            f"round_histogram[:3] {rh[:3]}; launches {launches}")
+        backend.timed_run(cfg)  # warm-up
+        walls = [backend.timed_run(cfg).wall_s for _ in range(5)]
+        say(f"[main] config 5 {law} instances/s = {len(res.inst_ids) / min(walls)} "
+            f"(best of 5 walls {walls} s; {card})")
+
+        # The goldens on this law, through the kernels.
+        gold = np.load(ROOT / "spec" / "golden" / "golden.npz")
+        for gname, fields in GOLDENS.items():
+            if fields["delivery"] != law:
+                continue
+            gcfg = SimConfig(protocol="bracha", instances=100, coin="shared",
+                             round_cap=64, **fields).validate()
+            got = backend.run(gcfg)
+            if not (np.array_equal(got.rounds, gold[f"{gname}__rounds"])
+                    and np.array_equal(got.decision, gold[f"{gname}__decision"])):
+                fail(f"golden {gname} differs through {name}")
+            say(f"[golden] {gname}: 100 instances equal to spec/golden/golden.npz "
+                f"through {name}")
+
+        # The plain path on the same 2000 instances.
+        plain = get_backend("torch", kernel="plain")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pres = plain.run(cfg)
+        plain_run_ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(pres.rounds, want_rounds)
+                and np.array_equal(pres.decision, want_dec)):
+            fail(f"the plain path under {law} differs from the reference")
+        say(f"[plain] config 5 {law}, plain torch path on the card: "
+            f"{plain_run_ms:.1f} ms for 2000 instances ({card})")
+
+        # Each launch of the main path: kernel time, plain time, bound.
+        calls = recorded_launches(cfg, law, dev)
+        mod = step_module(law)
+        k_ms, p_ms, ops, nbytes, err = [], [], 0, 0, 0
+        for call in calls:
+            got = mod.counts_fn(cfg, *call)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain_step(law, cfg, *call)
+            torch.cuda.synchronize()
+            p_ms.append((time.perf_counter() - t0) * 1e3)
+            err = max(err, step_counts_max_err(got, want))
+            k_ms.append(cuda_ms(lambda: mod.counts_fn(cfg, *call), 5))
+            o, b = step_bound(law, cfg, call)
+            ops, nbytes = ops + o, nbytes + b
+        if err != 0:
+            fail(f"{name} differs from plain on the main path's inputs (max abs err {err})")
+        n_calls = len(calls)
+        kernel_ms, plain_ms = sum(k_ms) / n_calls, sum(p_ms) / n_calls
+        ops_ms = ops / n_calls / INT_OPS_PER_S * 1e3
+        bytes_ms = nbytes / n_calls / HBM_BYTES_PER_S * 1e3
+        design = ""
+        if law == "keys":
+            design_ops = (ops / n_calls / OPS_PER_KEY_PAIR
+                          * (OPS_PER_PRF_WORD + SEARCH_OPS_PER_KEY_PAIR))
+            design = (f"; with its own 22-pass search the kernel does {design_ops:.4g} "
+                      f"int ops per launch, {design_ops / INT_OPS_PER_S * 1e3:.3f} ms "
+                      f"at the issue peak")
+        say(f"[kernel] {name} on config 5 {law} (2000 instances, n=512): "
+            f"{kernel_ms:.3f} ms per launch (mean over the {n_calls} launches of a run, "
+            f"5 reps each, CUDA events; per launch {[round(x, 3) for x in k_ms]}); "
+            f"{launches[name]} launches per run; plain {plain_ms:.1f} ms per launch; "
+            f"bound {max(ops_ms, bytes_ms):.3f} ms per launch from {ops / n_calls:.4g} "
+            f"int ops and {nbytes / n_calls:.4g} bytes{design}; {card}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"byzantinerandomizedconsensus_tpu_torch/csrc/{name}.cu",
+            "replaces": STEP_REPLACES[name],
+            "launches": launches[name], "max_abs_err": err, "matches_plain": True,
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -168,9 +475,9 @@ def main() -> int:
 
     # Phase 4: the main path, through the backend a user calls.
     backend = get_backend("torch")
-    fused_round.launches = 0
+    reset_launches()
     res = backend.timed_run(c4)
-    launches = fused_round.launches
+    launches = read_launches()["fused_round"]
     dh = decision_histogram(res).tolist()
     rh = round_histogram(res).tolist()
     if dh != CONFIG4_DECISIONS or rh[:4] != CONFIG4_ROUNDS_HEAD or any(rh[4:]):
@@ -222,6 +529,13 @@ def main() -> int:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }]
+
+    # Phase 5: the per-step kernels against plain on a grid.
+    step_phase(dev)
+
+    # Phase 6: config 5 at n=512 through the per-step kernels.
+    kernels += config5_phase(dev, card)
+
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -189,7 +189,14 @@ def test_setup_from_numpy_refuses_fault_schedules():
 
 @pytest.mark.parametrize("adversary", ["crash", "byzantine", "adaptive", "adaptive_min"])
 def test_other_adversaries_raise_by_name(adversary):
+    """crash and byzantine are not ported; the adaptive family is, but not
+    under urn2, whose two-stratum sampler is not ported: each raises by name
+    on its first round."""
     cfg = SimConfig(protocol="bracha", n=16, f=3, adversary=adversary,
                     delivery="urn2").validate()
+    ids = torch.arange(2)
     with pytest.raises(NotImplementedError, match=adversary):
-        AdversaryModel(cfg)
+        adv = AdversaryModel(cfg)
+        setup = adv.setup(cfg.seed, ids)
+        bracha.round_body(cfg, cfg.seed, ids, 0, state_mod.init_state(cfg, cfg.seed, ids),
+                          adv, setup)

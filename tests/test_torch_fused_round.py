@@ -134,9 +134,14 @@ UNSUPPORTED = [
 def test_unsupported_surface_raises_fused_unsupported_by_name(fields, named):
     base = dict(protocol="bracha", n=16, f=5, instances=64, delivery="urn2")
     cfg = SimConfig(**{**base, **fields}).validate()
-    for call in (lambda: fused_round.check_fused_supported(cfg),
-                 lambda: fused_round.run_chunk_plain(cfg, torch.zeros(1, dtype=torch.int32)),
-                 lambda: TorchBackend(device="cpu").run(cfg)):
+    calls = [lambda: fused_round.check_fused_supported(cfg),
+             lambda: fused_round.run_chunk_plain(cfg, torch.zeros(1, dtype=torch.int32))]
+    if cfg.delivery in ("keys", "urn"):
+        # The plain backend runs these laws on the per-step surface.
+        assert len(TorchBackend(device="cpu").run(cfg, inst_ids=[0]).rounds) == 1
+    else:
+        calls.append(lambda: TorchBackend(device="cpu").run(cfg))
+    for call in calls:
         with pytest.raises(FusedUnsupported) as e:
             call()
         assert named in str(e.value)
@@ -148,7 +153,8 @@ def test_default_device_is_cuda():
     they raise rather than fall back."""
     if torch.cuda.is_available():
         backend = TorchBackend()
-        assert backend.device.type == "cuda" and backend.kernel == "fused"
+        assert backend.device.type == "cuda"
+        assert backend.kernel_for(preset("config4")) == "fused"
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBackend()

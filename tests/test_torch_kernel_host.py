@@ -1,11 +1,14 @@
-"""The fused CUDA kernel's per-replica arithmetic, built for the host.
+"""The CUDA kernels' per-thread arithmetic, built for the host.
 
-``csrc/fused_round.cuh`` keeps everything a kernel thread computes between
-two block reductions in ``__host__ __device__`` functions; g++ builds them
-behind ``csrc/fused_round_host.cpp``. Each is held here against the port's
-plain torch version, and the host run of the kernel's round loop
-(``brc_host_fused_round``) against the plain round driver. The ``__global__``
-launch itself needs the card and is checked by ``chip_smoke.py``.
+``csrc/fused_round.cuh``, ``csrc/keys_step.cuh`` and ``csrc/urn_step.cuh``
+keep everything a kernel thread computes between two block or warp
+reductions in ``__host__ __device__`` functions; g++ builds them behind the
+``csrc/*_host.cpp`` shims. Each is held here against the port's plain torch
+version: the host run of the fused kernel's round loop
+(``brc_host_fused_round``) against the plain round driver, and the host runs
+of the two per-step kernels (``brc_host_keys_step``, ``brc_host_urn_step``)
+against their plain versions per step. The ``__global__`` launches
+themselves need the card and are checked by ``chip_smoke.py``.
 """
 
 import ctypes
@@ -16,7 +19,8 @@ import pytest
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
-from byzantinerandomizedconsensus_tpu_torch.ops import _build, fused_round, prf, urn2
+from byzantinerandomizedconsensus_tpu_torch.ops import (
+    _build, fused_round, keys_step, masks, prf, urn2, urn_step)
 
 
 @pytest.fixture(scope="module")
@@ -134,3 +138,105 @@ def test_host_round_loop_matches_plain_driver(host, case):
     np.testing.assert_array_equal(decision, pd.numpy())
     if cap == 2:
         assert (decision == 2).any(), "the capped case must reach the cap"
+
+
+STEP_ADVERSARY = {"none": 0, "adaptive": 1, "adaptive_min": 2}
+
+
+def _step_host(name):
+    if shutil.which("g++") is None:
+        pytest.skip(f"g++ not found: the host build of csrc/{name}.cuh needs a "
+                    "C++ compiler")
+    lib = _build.load_host(f"{name}_host")
+    fn = getattr(lib, f"brc_host_{name}")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint32] * 2
+    fn.restype = None
+    return lib, fn
+
+
+STEP_HOST_CASES = [(n, (n - 1) // 3, adv) for n in (4, 10, 64, 128, 200, 512)
+                   for adv in ("none", "adaptive", "adaptive_min")]
+
+
+@pytest.mark.parametrize("n,f,adversary", STEP_HOST_CASES,
+                         ids=[f"n{c[0]}-{c[2]}" for c in STEP_HOST_CASES])
+@pytest.mark.parametrize("name", ["keys_step", "urn_step"])
+def test_step_kernel_host_run_matches_plain(name, n, f, adversary):
+    """One step of the kernel's per-thread arithmetic, every (instance,
+    receiver), on random planes (faulty senders on the wire with a value
+    of their own), against the plain version."""
+    _, fn = _step_host(name)
+    cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, adversary=adversary,
+                    delivery={"keys_step": "keys", "urn_step": "urn"}[name]).validate()
+    rng = np.random.default_rng(n)
+    B = 3 if n <= 200 else 2
+    ids = rng.choice(cfg.instances, B, replace=False).astype(np.int32)
+    honest = rng.integers(0, 3, (B, n)).astype(np.uint8)
+    faulty = rng.random((B, n)) < 0.3
+    values = np.where(faulty, rng.integers(0, 2, (B, 1)), honest).astype(np.uint8)
+    silent = rng.random((B, n)) < 0.15
+    k0, k1 = 0x01234567, 0x89ABCDEF
+    for rnd, t in ((0, 0), (5, 1), (300, 2)):
+        c0 = np.empty((B, n), np.int32)
+        c1 = np.empty((B, n), np.int32)
+        sil8, fa8 = silent.astype(np.uint8), faulty.astype(np.uint8)
+        fn(ids.ctypes.data, values.ctypes.data, sil8.ctypes.data, fa8.ctypes.data,
+           c0.ctypes.data, c1.ctypes.data, B, n, f, rnd, t,
+           STEP_ADVERSARY[adversary], k0, k1)
+        planes = [torch.as_tensor(x) for x in (values, silent, faulty)]
+        if name == "keys_step":
+            w0, w1 = keys_step.step_counts_plain(cfg, (k0, k1), torch.as_tensor(ids),
+                                                 rnd, t, *planes)
+        else:
+            w0, w1 = urn_step.step_counts_plain(cfg, (k0, k1), torch.as_tensor(ids),
+                                                rnd, t, *planes, torch.as_tensor(honest))
+        np.testing.assert_array_equal(c0, w0.numpy(), err_msg=f"round {rnd} step {t}")
+        np.testing.assert_array_equal(c1, w1.numpy(), err_msg=f"round {rnd} step {t}")
+
+
+def test_combined_key_matches_plain_keys():
+    lib, _ = _step_host("keys_step")
+    fn = lib.brc_combined_key
+    fn.argtypes = [ctypes.c_uint32] * 2 + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [
+        ctypes.c_int, ctypes.c_uint32]
+    fn.restype = ctypes.c_uint32
+    rng = np.random.default_rng(6)
+    for adversary, code in STEP_ADVERSARY.items():
+        cfg = SimConfig(protocol="bracha", n=40, f=13, instances=1000, adversary=adversary,
+                        delivery="keys").validate()
+        inst, minority = 777, code & 1
+        values = rng.integers(0, 3, (1, 40)).astype(np.uint8)
+        silent = rng.random((1, 40)) < 0.3
+        vv, recv = values[:, None, :], np.arange(40)[None, :, None]
+        pref = minority if adversary == "adaptive_min" else (recv >= 20)
+        bias = ((vv == 2) | (vv != pref)) & (adversary != "none")
+        want = masks.combined_keys(cfg, (3, 4), torch.tensor([inst]), 9, 2,
+                                   torch.as_tensor(silent), torch.as_tensor(bias))[0]
+        for r in range(40):
+            for s_ in range(44):
+                v = int(values[0, s_]) if s_ < 40 else 2
+                got = fn(3, 4, 40, 9, 2, code, inst, r, s_, v,
+                         int(silent[0, s_]) if s_ < 40 else 0, minority)
+                assert got == (int(want[r, s_]) if s_ < 40 else 0xFFFFFFFF), (r, s_)
+
+
+def test_host_selection_vs_sort_with_tie_classes():
+    """The kernel's selection (the MSB-first search on the top field and the
+    tie class in sender order) against an argsort of the full keys, on rows
+    with dense top-field collisions, and on random 22-bit tops."""
+    lib, _ = _step_host("keys_step")
+    fn = lib.brc_select_row
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    rng = np.random.default_rng(99)
+    for trial in range(60):
+        S = int(rng.integers(1, 1025))
+        spread = (5, 1 << 22)[trial % 2]
+        top = np.ascontiguousarray(rng.integers(0, spread, S).astype(np.uint32))
+        k = int(rng.integers(1, S + 1))
+        sel = np.zeros(S, np.uint8)
+        fn(top.ctypes.data, S, k, sel.ctypes.data)
+        keys = (top.astype(np.int64) << 10) | np.arange(S)
+        want = np.zeros(S, np.uint8)
+        want[np.argsort(keys)[:k]] = 1
+        np.testing.assert_array_equal(sel, want, err_msg=f"S={S} k={k}")

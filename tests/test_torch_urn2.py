@@ -101,10 +101,12 @@ def test_lane_setup_matches_reference():
     rng = np.random.default_rng(3)
     inst, values, silent = _step_inputs(rng, 6, 33, (0.3, 0.3, 0.4), 0.25,
                                         inst_hi=64)
-    own, m, L, D = urn.lane_setup(cfg, torch.as_tensor(values), torch.as_tensor(silent))
-    _, w_own, w_m, _, w_L, w_D = ref_urn.lane_setup(
+    own, m, st, L, D = urn.lane_setup(cfg, torch.as_tensor(values),
+                                      torch.as_tensor(silent))
+    _, w_own, w_m, w_st, w_L, w_D = ref_urn.lane_setup(
         _ref(cfg), 0, inst, 0, 0, values, silent, np.zeros_like(silent), values,
         xp=np)
+    assert st is None and not any(np.asarray(s).any() for s in w_st)
     np.testing.assert_array_equal(own.numpy(), w_own)
     for w in range(3):
         np.testing.assert_array_equal(m[w].numpy(), w_m[w])
