@@ -46,8 +46,8 @@ def check_step_supported(cfg) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str):
-    fn = getattr(_build.load(name), f"brc_{name}_launch")
+def _launcher(name: str, lib=None):
+    fn = getattr(_build.load(name) if lib is None else lib, f"brc_{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -63,12 +63,13 @@ def _u8(x: torch.Tensor, what: str, shape) -> torch.Tensor:
 
 
 def launch(name: str, cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
-           values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor):
+           values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor, lib=None):
     """Launch ``csrc/<name>.cu`` on CUDA tensors; returns ``(c0, c1)``.
 
     ``inst_ids`` (B,) int32; ``values``, ``silent``, ``faulty`` (B, n) uint8
     or bool, all contiguous and on one CUDA device. Raises on anything else
-    and on a launch that returns a CUDA error.
+    and on a launch that returns a CUDA error. ``lib`` is a loaded build of
+    the kernel with the same C interface (default: the port's own build).
     """
     dev = inst_ids.device
     if dev.type != "cuda" or any(x.device != dev for x in (values, silent, faulty)):
@@ -82,7 +83,7 @@ def launch(name: str, cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
     k0, k1 = prf.seed_key(seed)
     c0 = torch.empty((B, n), dtype=torch.int32, device=dev)
     c1 = torch.empty((B, n), dtype=torch.int32, device=dev)
-    fn = _launcher(name)
+    fn = _launcher(name, lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(inst_ids.data_ptr(), *(x.data_ptr() for x in planes),

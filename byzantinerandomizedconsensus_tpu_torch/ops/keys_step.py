@@ -7,10 +7,11 @@ Counterpart of the reference ``ops/pallas_tally.py`` (the TPU kernel
 two (B, n) int32:
 
 - :func:`step_counts` launches the hand-written CUDA kernel
-  (``csrc/keys_step.cu``): one warp per receiver row, the row's keys in
-  registers, the n − f smallest found by a radix search on the key's top
-  field. It takes CUDA tensors; given CPU tensors it runs the plain version,
-  because there is no kernel to run there.
+  (``csrc/keys_step.cu``): class counts per instance first, then one warp
+  per receiver row hashes only the class in which the n − f threshold falls
+  and finds the threshold by a histogram on the PRF's top bits and an exact
+  finish in its bin. It takes CUDA tensors; given CPU tensors it runs the
+  plain version, because there is no kernel to run there.
 - :func:`step_counts_plain` is the keys law in torch ops
   (``ops/masks.py`` and ``ops/tally.py``), a bounded number of key triples
   at a time. It is also the round body's default keys delivery

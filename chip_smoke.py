@@ -29,7 +29,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    against the committed reference results (``artifacts/sweep_keys``,
    ``artifacts/sweep_urn``); the four goldens of ``spec/golden/golden.npz``
    on this surface through the kernels; throughput, best of 5 after a
-   warm-up; each kernel's mean time per launch, launches per run and bound,
+   warm-up; each kernel's mean time per launch, launches per run and bound
+   (keys_step's counted from each launch's crossing-class pairs, with their
+   fraction of all pairs and the earlier all-pairs design's cost beside it),
    and the plain path's time;
 7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -89,13 +91,18 @@ INT_OPS_PER_S = 132 * 128 * 1.98e9
 # reduction (shift, subtract, multiply, shift) and the compare-and-add.
 OPS_PER_PRF_WORD = 20 * 3 + 5 * 2 + 2
 OPS_PER_CHAIN_DRAW = 9
-# The keys law: each (recv, send) pair needs one threefry word, and picking
-# the n - f smallest of a row's distinct keys needs about one compare per
-# key. The key assembly and the tally are left out, so the bound stays a
-# least time. keys_step.cuh's own selection spends 22 search passes of a
-# compare and an add per pair: that is the design's cost, printed beside
-# the bound and not counted in it.
-OPS_PER_KEY_PAIR = OPS_PER_PRF_WORD + 1
+# The keys law: a receiver row needs one threefry word for each sender of
+# its crossing class, the class (silent, bias) in which the n - f threshold
+# falls, other than itself (crossing_pairs, counted from each launch's
+# planes), and about one compare for each of those keys to pick the
+# threshold among them; every other class is selected whole or not at all
+# from its count, which takes one pass over the senders per class table
+# (two under adaptive, where the bias depends on the receiver's preference).
+# The key assembly and the tally are left out, so the bound stays a least
+# time. The earlier design hashed every pair and ran 22 search passes of a
+# compare and an add per pair: that cost is printed beside the bound and not
+# counted in it.
+OPS_PER_KEY = 1
 SEARCH_OPS_PER_KEY_PAIR = 22 * 2
 # urn_step.cuh: a drop draw is the LCG multiply-add, the shift-xor-shift,
 # the range multiply and shift, and two compares and a decrement (the
@@ -296,21 +303,48 @@ def recorded_launches(cfg, law, dev):
     return calls
 
 
+def crossing_pairs(cfg, values: torch.Tensor, silent: torch.Tensor,
+                   faulty: torch.Tensor) -> int:
+    """The PRF words one keys step needs on these planes: for each receiver
+    row, the senders of its crossing class other than itself, and none where
+    every live key is selected (``csrc/keys_step.cuh::row_plan``). The
+    classes come from the wire values alone, so this count needs no hashing.
+    """
+    from byzantinerandomizedconsensus_tpu_torch.models.adversaries import scheduling_bias
+
+    (B, n), k = values.shape, cfg.n - cfg.f
+    live = ~silent.bool()
+    bias = scheduling_bias(cfg, values, faulty)  # (B, 1 or n, n)
+    own_bias = bias.expand(B, n, n).diagonal(dim1=1, dim2=2)
+    # Live senders of class 1 and of class 0 at each receiver, then the own
+    # key moved from its natural class to class 0.
+    m1 = (live[:, None, :] & bias).sum(-1)
+    m0 = live.sum(-1, keepdim=True) - m1
+    m0 = m0 - (live & ~own_bias).long() + 1
+    m1 = m1 - (live & own_bias).long()
+    hashed = torch.where(k < m0, m0 - 1,
+                         torch.where((k > m0) & (k < m0 + m1), m1, torch.zeros_like(m1)))
+    return int(hashed.sum())
+
+
 def step_bound(law, cfg, call):
-    """(operations, bytes) the step must do on these inputs."""
+    """(operations, bytes, PRF words) the step must do on these inputs."""
     from byzantinerandomizedconsensus_tpu_torch.ops import urn
 
     seed, ids, rnd, t, values, silent, faulty, honest = call
     B, n = values.shape
     if law == "keys":
-        ops = B * n * n * OPS_PER_KEY_PAIR
+        words = crossing_pairs(cfg, values, silent, faulty)
+        tables = 2 if cfg.adversary == "adaptive" else 1
+        ops = words * (OPS_PER_PRF_WORD + OPS_PER_KEY) + B * n * tables
         nbytes = B * (4 + 3 * n + 8 * n)
     else:
         D = urn.lane_setup(cfg, values, silent, faulty, honest)[4]
-        ops = B * n * OPS_PER_PRF_WORD + int(D.sum()) * OPS_PER_URN_DRAW
+        words = B * n
+        ops = words * OPS_PER_PRF_WORD + int(D.sum()) * OPS_PER_URN_DRAW
         planes = 3 if cfg.adversary == "adaptive_min" else 2
         nbytes = B * (4 + planes * n + 8 * n)
-    return ops, nbytes
+    return ops, nbytes, words
 
 
 def config5_phase(dev, card):
@@ -382,7 +416,7 @@ def config5_phase(dev, card):
         # Each launch of the main path: kernel time, plain time, bound.
         calls = recorded_launches(cfg, law, dev)
         mod = step_module(law)
-        k_ms, p_ms, ops, nbytes, err = [], [], 0, 0, 0
+        k_ms, p_ms, ops, nbytes, words, err = [], [], 0, 0, 0, 0
         for call in calls:
             got = mod.counts_fn(cfg, *call)
             torch.cuda.synchronize()
@@ -392,8 +426,8 @@ def config5_phase(dev, card):
             p_ms.append((time.perf_counter() - t0) * 1e3)
             err = max(err, step_counts_max_err(got, want))
             k_ms.append(cuda_ms(lambda: mod.counts_fn(cfg, *call), 5))
-            o, b = step_bound(law, cfg, call)
-            ops, nbytes = ops + o, nbytes + b
+            o, b, w = step_bound(law, cfg, call)
+            ops, nbytes, words = ops + o, nbytes + b, words + w
         if err != 0:
             fail(f"{name} differs from plain on the main path's inputs (max abs err {err})")
         n_calls = len(calls)
@@ -402,10 +436,15 @@ def config5_phase(dev, card):
         bytes_ms = nbytes / n_calls / HBM_BYTES_PER_S * 1e3
         design = ""
         if law == "keys":
-            design_ops = (ops / n_calls / OPS_PER_KEY_PAIR
-                          * (OPS_PER_PRF_WORD + SEARCH_OPS_PER_KEY_PAIR))
-            design = (f"; with its own 22-pass search the kernel does {design_ops:.4g} "
-                      f"int ops per launch, {design_ops / INT_OPS_PER_S * 1e3:.3f} ms "
+            # The earlier design's cost: every pair hashed, then its 22-pass search.
+            pairs = sum(c[4].shape[0] for c in calls) * cfg.n * cfg.n / n_calls
+            all_ops = pairs * (OPS_PER_PRF_WORD + OPS_PER_KEY)
+            search_ops = pairs * (OPS_PER_PRF_WORD + SEARCH_OPS_PER_KEY_PAIR)
+            design = (f"; crossing-class pairs {words / n_calls:.6g} of {pairs:.6g} per "
+                      f"launch, fraction {words / n_calls / pairs:.4f}; the all-pairs design "
+                      f"hashed every pair: {all_ops:.4g} int ops, "
+                      f"{all_ops / INT_OPS_PER_S * 1e3:.3f} ms, and with its 22-pass "
+                      f"search {search_ops:.4g}, {search_ops / INT_OPS_PER_S * 1e3:.3f} ms "
                       f"at the issue peak")
         say(f"[kernel] {name} on config 5 {law} (2000 instances, n=512): "
             f"{kernel_ms:.3f} ms per launch (mean over the {n_calls} launches of a run, "

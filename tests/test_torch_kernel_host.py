@@ -7,11 +7,14 @@ reductions in ``__host__ __device__`` functions; g++ builds them behind the
 version: the host run of the fused kernel's round loop
 (``brc_host_fused_round``) against the plain round driver, and the host runs
 of the two per-step kernels (``brc_host_keys_step``, ``brc_host_urn_step``)
-against their plain versions per step. The ``__global__`` launches
+against their plain versions per step, and the keys kernel's row selection
+(``brc_deliver_row``) against an argsort. The ``__global__`` launches
 themselves need the card and are checked by ``chip_smoke.py``.
 """
 
 import ctypes
+import importlib.util
+import pathlib
 import shutil
 
 import numpy as np
@@ -21,6 +24,12 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
 from byzantinerandomizedconsensus_tpu_torch.ops import (
     _build, fused_round, keys_step, masks, prf, urn2, urn_step)
+
+# chip_smoke.py holds the keys bound's count, crossing_pairs.
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(scope="module")
@@ -220,23 +229,139 @@ def test_combined_key_matches_plain_keys():
                 assert got == (int(want[r, s_]) if s_ < 40 else 0xFFFFFFFF), (r, s_)
 
 
-def test_host_selection_vs_sort_with_tie_classes():
-    """The kernel's selection (the MSB-first search on the top field and the
-    tie class in sender order) against an argsort of the full keys, on rows
-    with dense top-field collisions, and on random 22-bit tops."""
+def _deliver_row_fn():
     lib, _ = _step_host("keys_step")
-    fn = lib.brc_select_row
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = None
+    fn = lib.brc_deliver_row
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def test_host_selection_vs_sort_with_tie_classes():
+    """The kernel's row selection (brc_deliver_row: the class plan, the
+    histogram select and the exact finish) against an argsort of the full
+    keys, on rows with dense top-field collisions, which fill one bin past
+    the finish slots, and on random 22-bit tops (every class, silent ones
+    included)."""
+    fn = _deliver_row_fn()
     rng = np.random.default_rng(99)
     for trial in range(60):
         S = int(rng.integers(1, 1025))
         spread = (5, 1 << 22)[trial % 2]
         top = np.ascontiguousarray(rng.integers(0, spread, S).astype(np.uint32))
+        values = np.ascontiguousarray(rng.integers(0, 3, S).astype(np.uint8))
         k = int(rng.integers(1, S + 1))
-        sel = np.zeros(S, np.uint8)
-        fn(top.ctypes.data, S, k, sel.ctypes.data)
+        recv = int(rng.integers(0, S))
+        deliv = np.zeros(S, np.uint8)
+        out = np.zeros(2, np.int32)
+        fn(top.ctypes.data, values.ctypes.data, S, recv, k, deliv.ctypes.data,
+           out.ctypes.data)
         keys = (top.astype(np.int64) << 10) | np.arange(S)
-        want = np.zeros(S, np.uint8)
-        want[np.argsort(keys)[:k]] = 1
-        np.testing.assert_array_equal(sel, want, err_msg=f"S={S} k={k}")
+        keys[recv] = recv
+        want = np.zeros(S, bool)
+        want[np.argsort(keys)[:k]] = True
+        want &= (top >> 21) == 0
+        want[recv] = True
+        np.testing.assert_array_equal(deliv.astype(bool), want, err_msg=f"S={S} k={k}")
+
+
+def _row_case(case, n, rng):
+    """Natural classes (silent << 1 | bias) and PRF fields of a row of n
+    senders, built to reach one branch of the kernel's row plan."""
+    perm = rng.permutation(n)
+    prf_ = rng.integers(0, 1 << 20, n)
+    cls = np.zeros(n, np.int64)
+    if case == "cross1":
+        cls[:] = 1
+        cls[perm[:max(1, n // 3)]] = 0
+    elif case == "live_below_k":
+        cls = rng.integers(0, 2, n)
+        cls[perm[:n // 2 + 1]] |= 2
+    elif case == "all_silent":
+        cls = 2 | rng.integers(0, 2, n)
+    elif case == "own_ties":
+        prf_[perm[:n // 2]] = 0  # ties at top 0 with the own key
+    elif case == "bin_ties":
+        # One 8-bit bin holds a third of the senders, some with equal PRFs.
+        tied = perm[:max(2, n // 3)]
+        prf_[tied] = (0x5A << 12) | rng.integers(0, 4, len(tied))
+        cls = rng.integers(0, 2, n)
+    return cls, prf_
+
+
+ROW_CASES = ["cross0", "cross1", "live_below_k", "all_silent", "own_ties", "bin_ties"]
+
+
+@pytest.mark.parametrize("n", [4, 10, 200, 512, 1024])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_deliver_row_vs_argsort(case, n):
+    """The kernel's row (class plan, crossing class, histogram select, exact
+    finish) against an argsort of the full keys (top, sender) with the own
+    key recv, on rows built to reach each branch; the counts against the
+    delivered flags."""
+    fn = _deliver_row_fn()
+    rng = np.random.default_rng(n + 7 * ROW_CASES.index(case))
+    cls, prf_ = _row_case(case, n, rng)
+    top = np.ascontiguousarray((cls << 20) | prf_, dtype=np.uint32)
+    values = np.ascontiguousarray(rng.integers(0, 3, n), dtype=np.uint8)
+    silent = cls >= 2
+    plans = set()
+    for recv in sorted({0, n // 2, n - 1}):
+        for k in sorted({1, max(1, n // 8), n - (n - 1) // 3, n - 1, n}):
+            if k < 1:
+                continue
+            keys = (top.astype(np.int64) << 10) | np.arange(n)
+            keys[recv] = recv
+            sel = np.zeros(n, bool)
+            sel[np.argsort(keys)[:k]] = True
+            want = sel & ~silent
+            want[recv] = True
+            deliv = np.zeros(n, np.uint8)
+            out = np.zeros(2, np.int32)
+            hashed = fn(top.ctypes.data, values.ctypes.data, n, recv, k,
+                        deliv.ctypes.data, out.ctypes.data)
+            np.testing.assert_array_equal(deliv.astype(bool), want,
+                                          err_msg=f"recv={recv} k={k}")
+            assert tuple(out) == (int((want & (values == 0)).sum()),
+                                  int((want & (values == 1)).sum())), (recv, k)
+            # The plan the row took, from the class counts alone.
+            own_cls = cls[recv]
+            m0 = int((cls == 0).sum()) - (own_cls == 0) + 1
+            m1 = int((cls == 1).sum()) - (own_cls == 1)
+            plan = 0 if k < m0 else (1 if k < m0 + m1 else 2)
+            plans.add(plan)
+            assert hashed == (m0 - 1 if plan == 0 else (m1 if plan == 1 and k > m0 else 0))
+    expect = {"cross0": 0, "cross1": 1, "live_below_k": 2, "all_silent": 2,
+              "own_ties": 0, "bin_ties": 1}[case]
+    assert expect in plans, plans
+
+
+CROSSING_CASES = [(n, (n - 1) // 3, adv) for n in (10, 64, 200)
+                  for adv in ("none", "adaptive", "adaptive_min")]
+
+
+@pytest.mark.parametrize("n,f,adversary", CROSSING_CASES,
+                         ids=[f"n{c[0]}-{c[2]}" for c in CROSSING_CASES])
+def test_crossing_pairs_counts_the_kernels_prf_words(n, f, adversary):
+    """chip_smoke.py's crossing_pairs, the bound's count, equals the PRF
+    words the host build of the kernel computes, on planes with every class
+    filled."""
+    _, fn = _step_host("keys_step")
+    fn.restype = ctypes.c_longlong  # brc_host_keys_step returns its PRF words
+    cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, adversary=adversary,
+                    delivery="keys").validate()
+    rng = np.random.default_rng(3 * n)
+    B = 4
+    ids = rng.choice(cfg.instances, B, replace=False).astype(np.int32)
+    for p_silent in (0.0, 0.15, 0.5):
+        values = rng.integers(0, 3, (B, n)).astype(np.uint8)
+        silent = (rng.random((B, n)) < p_silent).astype(np.uint8)
+        faulty = (rng.random((B, n)) < 0.3).astype(np.uint8)
+        c0 = np.empty((B, n), np.int32)
+        c1 = np.empty((B, n), np.int32)
+        got = fn(ids.ctypes.data, values.ctypes.data, silent.ctypes.data, faulty.ctypes.data,
+                 c0.ctypes.data, c1.ctypes.data, B, n, f, 2, 1,
+                 STEP_ADVERSARY[adversary], 5, 6)
+        want = chip_smoke.crossing_pairs(cfg, *(torch.as_tensor(x) for x in
+                                               (values, silent.astype(bool), faulty.astype(bool))))
+        assert got == want, p_silent
