@@ -9,15 +9,25 @@
 // Layout. One CTA per instance, one thread per receiver (blockDim = n rounded
 // up to a warp), as in fused_round.cu. The live class totals, and under
 // adaptive_min the honest vote counts that give the minority, are
-// __syncthreads_count reductions. Each thread then runs its own D drop draws
-// (urn_step.cuh::urn_counts): the sequential single-stratum loop without
-// strata (the reference's affine LCG tables are a TPU device and not needed
-// here), the two-stratum loop for the adaptive family. Only the (B, n)
-// counts are written.
+// __syncthreads_count reductions. Each thread then runs its own drop draws
+// (urn_step.cuh::urn_counts). Every receiver of an instance sees the same
+// totals less its own message, so D is the same within a CTA up to one and a
+// warp does not diverge on it. Only the (B, n) counts are written.
 //
-// Bound. Integer issue: one threefry word per receiver and about 12
-// operations per drop draw, against 3n bytes read and 8n bytes written per
-// instance. A warp waits for its longest D.
+// Bound. Integer operations. A drop draw is the LCG multiply-add, the xor-shift,
+// the draw's index scaled by 2^22 (a shift and one full-rate IMAD), and one
+// compare with a predicated subtract against the tracked count, held scaled
+// the same way (urn_step.cuh::urn_scaled, sub_if_below); a single-stratum
+// draw adds a compare and a subtract. Under the adaptive family only the
+// draws of the biased phase are made, min(D, B0) per receiver, and the tail
+// is one subtraction. A receiver with D == 0 computes no threefry word. The
+// loop runs over the urn size and is unrolled by 4, so the LCG steps, which
+// do not depend on the picks, overlap the one loop-carried chain, compare
+// then subtract. __launch_bounds__(1024, 2) holds a thread to 32 registers,
+// so 64 warps reside on an SM at any n. The reference's affine LCG tables
+// (pallas_urn.py:137-162), a TPU device to make each draw's state
+// independent of the one before, are not carried over: here the LCG step is
+// one IMAD off the pick chain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,7 +35,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(1024, 2)
 urn_step_kernel(const int32_t* __restrict__ inst_ids,
                 const uint8_t* __restrict__ values,
                 const uint8_t* __restrict__ silent,
@@ -50,8 +60,8 @@ urn_step_kernel(const int32_t* __restrict__ inst_ids,
   }
   if (!active) return;
   int c0, c1;
-  brc::urn_counts(p, (uint32_t)inst_ids[b], v, own, live, M0, M1, M2,
-                  brc::strata(p, v, minority), &c0, &c1);
+  brc::urn_counts(p, (uint32_t)inst_ids[b], v, own, live, M0, M1, M2, minority,
+                  &c0, &c1);
   c0_out[at] = c0;
   c1_out[at] = c1;
 }

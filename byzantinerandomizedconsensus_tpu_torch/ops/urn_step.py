@@ -8,7 +8,9 @@ Counterpart of the reference ``ops/pallas_urn.py`` (the TPU kernel
 
 - :func:`step_counts` launches the hand-written CUDA kernel
   (``csrc/urn_step.cu``): one CTA per instance, one thread per receiver,
-  each thread running its own D drop draws. It takes CUDA tensors; given CPU
+  each thread running its own drop draws (under the adaptive family only
+  those of the biased stratum; the rest come from the preferred class in
+  closed form). It takes CUDA tensors; given CPU
   tensors it runs the plain version, because there is no kernel to run
   there.
 - :func:`step_counts_plain` is ``ops/urn.py::counts_fn``.

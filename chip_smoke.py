@@ -29,10 +29,15 @@ Phases, in order; any failure exits nonzero and prints no result:
    against the committed reference results (``artifacts/sweep_keys``,
    ``artifacts/sweep_urn``); the four goldens of ``spec/golden/golden.npz``
    on this surface through the kernels; throughput, best of 5 after a
-   warm-up; each kernel's mean time per launch, launches per run and bound
-   (keys_step's counted from each launch's crossing-class pairs, with their
-   fraction of all pairs and the earlier all-pairs design's cost beside it),
-   and the plain path's time;
+   warm-up; each kernel's device time per launch (launches captured in a
+   CUDA graph, its replay timed, so the wrapper's host path is left out)
+   beside its wrapper time (back-to-back calls), launches per run, and bound
+   per launch, counted from each launch's planes (keys_step's from the
+   crossing-class pairs, with their fraction of all pairs and the earlier
+   all-pairs design's cost beside it; urn_step's from the receivers with
+   D > 0 and the draws the law needs, with the earlier count beside it),
+   failing if a kernel beats its bound; the ptxas report of each; and the
+   plain path's time;
 7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -104,10 +109,21 @@ OPS_PER_CHAIN_DRAW = 9
 # counted in it.
 OPS_PER_KEY = 1
 SEARCH_OPS_PER_KEY_PAIR = 22 * 2
-# urn_step.cuh: a drop draw is the LCG multiply-add, the shift-xor-shift,
-# the range multiply and shift, and two compares and a decrement (the
-# two-stratum draw does more; the bound counts the single-stratum work).
-OPS_PER_URN_DRAW = 10
+# The urn law: a receiver with D > 0 needs one threefry word. A draw of the
+# adaptive family's biased phase is at least the LCG multiply-add, a shift,
+# an xor-and-mask, a high multiply, one compare and one decrement (the
+# kernel's own loop trades the high multiply for a shift and a full-rate
+# multiply: 7); a single-stratum draw adds a compare and a decrement. Two
+# strata need min(D, B0) draws per receiver (the tail needs no random
+# word), one stratum D (urn_draws, counted from each launch's planes). The
+# earlier design's count, one threefry word per receiver and 10 operations
+# for each of D draws, is printed beside the bound and not used.
+OPS_PER_URN_DRAW = 6
+OPS_PER_SINGLE_URN_DRAW = 8
+EARLIER_OPS_PER_URN_DRAW = 10
+# Device time per launch: this many launches captured in one CUDA graph,
+# whose replay is timed by CUDA events, so the wrapper's host path is left out.
+GRAPH_LAUNCHES = 20
 
 STEP_LAWS = {"keys": "keys_step", "urn": "urn_step"}
 STEP_REPLACES = {"keys_step": "byzantinerandomizedconsensus_tpu/ops/pallas_tally.py:326",
@@ -139,6 +155,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device time of one ``fn()`` (a kernel launch on the current stream):
+    ``launches`` calls captured in one CUDA graph, the graph's replay timed by
+    CUDA events, the mean over ``replays`` replays divided by ``launches``.
+    Each call's outputs are kept for the graph's life, so the launches write
+    to distinct memory and not again and again to the same lines of L2."""
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            outs.append(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, replays) / launches
+    del graph, outs
+    return ms
+
+
+def ptxas_summary(name: str) -> str:
+    """Registers and spills of the current build of ``name``, from its
+    ``ptxas -v`` report."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import _build
+
+    return " / ".join(line.split("info    : ")[-1].strip()
+                      for line in _build.build_log(name).splitlines()
+                      if "registers" in line or "spill" in line)
 
 
 def grid_configs():
@@ -327,10 +372,26 @@ def crossing_pairs(cfg, values: torch.Tensor, silent: torch.Tensor,
     return int(hashed.sum())
 
 
-def step_bound(law, cfg, call):
-    """(operations, bytes, PRF words) the step must do on these inputs."""
+def urn_draws(cfg, values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor,
+              honest: torch.Tensor):
+    """(draws, PRF words, drops) of one urn step on these planes: the
+    receivers with D > 0 need a PRF word each; two strata draw min(D, B0)
+    per receiver, B0 being its live biased messages other than its own, and
+    one stratum D (``csrc/urn_step.cuh::urn_counts``); drops is the sum of D."""
     from byzantinerandomizedconsensus_tpu_torch.ops import urn
 
+    _, m, st, _, D = urn.lane_setup(cfg, values, silent, faulty, honest)
+    D = D.to(torch.int64)
+    drawn = D
+    if st is not None:
+        B0 = sum(torch.where(s, c, 0).to(torch.int64) for s, c in zip(st, m))
+        drawn = torch.minimum(D, B0)
+    return int(drawn.sum()), int((D > 0).sum()), int(D.sum())
+
+
+def step_bound(law, cfg, call):
+    """(operations, bytes, PRF words, the earlier count's operations) the
+    step must do on these inputs."""
     seed, ids, rnd, t, values, silent, faulty, honest = call
     B, n = values.shape
     if law == "keys":
@@ -338,13 +399,14 @@ def step_bound(law, cfg, call):
         tables = 2 if cfg.adversary == "adaptive" else 1
         ops = words * (OPS_PER_PRF_WORD + OPS_PER_KEY) + B * n * tables
         nbytes = B * (4 + 3 * n + 8 * n)
-    else:
-        D = urn.lane_setup(cfg, values, silent, faulty, honest)[4]
-        words = B * n
-        ops = words * OPS_PER_PRF_WORD + int(D.sum()) * OPS_PER_URN_DRAW
-        planes = 3 if cfg.adversary == "adaptive_min" else 2
-        nbytes = B * (4 + planes * n + 8 * n)
-    return ops, nbytes, words
+        return ops, nbytes, words, ops
+    draws, words, drops = urn_draws(cfg, values, silent, faulty, honest)
+    per_draw = OPS_PER_URN_DRAW if cfg.adversary != "none" else OPS_PER_SINGLE_URN_DRAW
+    ops = words * OPS_PER_PRF_WORD + draws * per_draw
+    earlier = B * n * OPS_PER_PRF_WORD + drops * EARLIER_OPS_PER_URN_DRAW
+    planes = 3 if cfg.adversary == "adaptive_min" else 2
+    nbytes = B * (4 + planes * n + 8 * n)
+    return ops, nbytes, words, earlier
 
 
 def config5_phase(dev, card):
@@ -413,11 +475,13 @@ def config5_phase(dev, card):
         say(f"[plain] config 5 {law}, plain torch path on the card: "
             f"{plain_run_ms:.1f} ms for 2000 instances ({card})")
 
-        # Each launch of the main path: kernel time, plain time, bound.
+        # Each launch of the main path: device time, wrapper time, plain
+        # time, bound.
         calls = recorded_launches(cfg, law, dev)
         mod = step_module(law)
-        k_ms, p_ms, ops, nbytes, words, err = [], [], 0, 0, 0, 0
-        for call in calls:
+        dev_ms, wrap_ms, p_ms, bounds, err = [], [], [], [], 0
+        ops = nbytes = words = earlier = ops_bound = bytes_bound = 0.0
+        for i, call in enumerate(calls):
             got = mod.counts_fn(cfg, *call)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -425,16 +489,24 @@ def config5_phase(dev, card):
             torch.cuda.synchronize()
             p_ms.append((time.perf_counter() - t0) * 1e3)
             err = max(err, step_counts_max_err(got, want))
-            k_ms.append(cuda_ms(lambda: mod.counts_fn(cfg, *call), 5))
-            o, b, w = step_bound(law, cfg, call)
-            ops, nbytes, words = ops + o, nbytes + b, words + w
+            wrap_ms.append(cuda_ms(lambda: mod.counts_fn(cfg, *call), 5))
+            dev_ms.append(graph_ms(lambda: mod.counts_fn(cfg, *call)))
+            o, b, w, e = step_bound(law, cfg, call)
+            o_ms, b_ms = o / INT_OPS_PER_S * 1e3, b / HBM_BYTES_PER_S * 1e3
+            bounds.append(max(o_ms, b_ms))
+            if o_ms >= b_ms:
+                ops_bound += o_ms
+            else:
+                bytes_bound += b_ms
+            if dev_ms[-1] < bounds[-1]:
+                fail(f"{name} took {dev_ms[-1]:.5f} ms on launch {i}, under its bound of "
+                     f"{bounds[-1]:.5f} ms: the bound's count is wrong")
+            ops, nbytes, words, earlier = ops + o, nbytes + b, words + w, earlier + e
         if err != 0:
             fail(f"{name} differs from plain on the main path's inputs (max abs err {err})")
         n_calls = len(calls)
-        kernel_ms, plain_ms = sum(k_ms) / n_calls, sum(p_ms) / n_calls
-        ops_ms = ops / n_calls / INT_OPS_PER_S * 1e3
-        bytes_ms = nbytes / n_calls / HBM_BYTES_PER_S * 1e3
-        design = ""
+        kernel_ms, wrapper_ms = sum(dev_ms) / n_calls, sum(wrap_ms) / n_calls
+        plain_ms, bound_ms = sum(p_ms) / n_calls, sum(bounds) / n_calls
         if law == "keys":
             # The earlier design's cost: every pair hashed, then its 22-pass search.
             pairs = sum(c[4].shape[0] for c in calls) * cfg.n * cfg.n / n_calls
@@ -446,20 +518,30 @@ def config5_phase(dev, card):
                       f"{all_ops / INT_OPS_PER_S * 1e3:.3f} ms, and with its 22-pass "
                       f"search {search_ops:.4g}, {search_ops / INT_OPS_PER_S * 1e3:.3f} ms "
                       f"at the issue peak")
-        say(f"[kernel] {name} on config 5 {law} (2000 instances, n=512): "
-            f"{kernel_ms:.3f} ms per launch (mean over the {n_calls} launches of a run, "
-            f"5 reps each, CUDA events; per launch {[round(x, 3) for x in k_ms]}); "
-            f"{launches[name]} launches per run; plain {plain_ms:.1f} ms per launch; "
-            f"bound {max(ops_ms, bytes_ms):.3f} ms per launch from {ops / n_calls:.4g} "
-            f"int ops and {nbytes / n_calls:.4g} bytes{design}; {card}")
+        else:
+            draws = [urn_draws(cfg, *call[4:8])[:2] for call in calls]
+            design = (f"; draws and PRF words (receivers with D > 0) by launch {draws}; "
+                      f"PRF words {words / n_calls:.6g} per launch; "
+                      f"the earlier design's count (a word per receiver, 10 ops for each of "
+                      f"D draws): {earlier / n_calls:.4g} int ops, "
+                      f"{earlier / n_calls / INT_OPS_PER_S * 1e3:.4f} ms per launch")
+        say(f"[kernel] {name} on config 5 {law} (2000 instances, n=512): device "
+            f"{kernel_ms:.4f} ms per launch (mean over the {n_calls} launches of a run; "
+            f"each {GRAPH_LAUNCHES} launches in a CUDA graph, 5 replays, CUDA events; per "
+            f"launch {[round(x, 4) for x in dev_ms]}); wrapper {wrapper_ms:.4f} ms per "
+            f"launch (back-to-back calls, 5 reps, CUDA events; per launch "
+            f"{[round(x, 4) for x in wrap_ms]}); {launches[name]} launches per run; "
+            f"plain {plain_ms:.1f} ms per launch; bound {bound_ms:.4f} ms per launch (per "
+            f"launch {[round(x, 4) for x in bounds]}) from {ops / n_calls:.4g} int ops and "
+            f"{nbytes / n_calls:.4g} bytes{design}; ptxas {ptxas_summary(name)}; {card}")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"byzantinerandomizedconsensus_tpu_torch/csrc/{name}.cu",
             "replaces": STEP_REPLACES[name],
             "launches": launches[name], "max_abs_err": err, "matches_plain": True,
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_bound >= bytes_bound else "bytes",
             "library_ms": None,
         })
     return entries
@@ -488,9 +570,7 @@ def main() -> int:
     took = _build.build()
     say(f"[build] {len(took)} kernel(s) built in {time.perf_counter() - t0:.1f} s: {took}")
     for k in _build.KERNELS:
-        for line in _build.build_log(k).splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[build] {k}: {line.strip()}")
+        say(f"[build] {k}: {ptxas_summary(k)}")
 
     # Phase 3: kernel against plain on a grid of small configs.
     t0 = time.perf_counter()
