@@ -4,7 +4,7 @@ kernels, or anywhere through the plain torch round driver.
 Three kernels, chosen per backend:
 
 - ``"fused"`` launches ``csrc/fused_round.cu`` once per chunk: the whole
-  round loop (delivery urn2, adversary none);
+  round loop (delivery urn2; both protocols, every static adversary);
 - ``"step"`` runs the per-step round driver (:func:`models.driver.run_chunk`)
   with a CUDA kernel as each broadcast step's delivery: ``csrc/keys_step.cu``
   under ``delivery="keys"``, ``csrc/urn_step.cu`` under ``delivery="urn"``;

@@ -1,12 +1,18 @@
 """Command line of the port: run a preset or a config-5 sweep point through
 the torch backend and print the same JSON summary as the reference CLI's
-``run``.
+``run``; or run the five benchmark configurations as shipped and print them
+in one JSON, as the reference's ``product`` does.
 
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config2 --hist
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4 \
         --instances 256 --device cpu --hist
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512 \
         --delivery keys
+    python -m byzantinerandomizedconsensus_tpu_torch.cli product --out product.json
+    python -m byzantinerandomizedconsensus_tpu_torch.cli trace \
+        --configs config3 config5@1024 config5@512/keys
 """
 
 from __future__ import annotations
@@ -15,7 +21,9 @@ import argparse
 import dataclasses
 import json
 import math
+import pathlib
 import sys
+import tempfile
 
 import numpy as np
 
@@ -23,7 +31,11 @@ from byzantinerandomizedconsensus_tpu_torch.backends import get_backend
 from byzantinerandomizedconsensus_tpu_torch.backends.base import SimResult
 from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import KERNELS
 from byzantinerandomizedconsensus_tpu_torch.config import (
-    DELIVERY_KINDS, PRESETS, preset, sweep_point)
+    DELIVERY_KINDS, PRESETS, SWEEP_POINT_N, preset, sweep_point)
+
+#: The configurations of ``product``: the four presets and config 5's sweep
+#: point, each as shipped.
+PRODUCT_CONFIGS = (*PRESETS, "config5")
 
 
 def round_histogram(res: SimResult) -> np.ndarray:
@@ -83,16 +95,87 @@ def cmd_run(args) -> int:
     backend.prepare(cfg)
     res = backend.timed_run(cfg)
     out = summary(res)
-    out["backend"] = "torch"
-    out["kernel"] = backend.kernel_for(cfg)
-    out["device"] = str(backend.device)
+    out.update(_device_fields(backend), kernel=backend.kernel_for(cfg))
+    if args.hist:
+        out["round_histogram"] = round_histogram(res).tolist()
+    print(json.dumps(out))
+    return 0
+
+
+def _device_fields(backend) -> dict:
+    out = {"backend": "torch", "device": str(backend.device)}
     if backend.device.type == "cuda":
         import torch
 
         out["device_name"] = torch.cuda.get_device_name(backend.device)
-    if args.hist:
-        out["round_histogram"] = round_histogram(res).tolist()
-    print(json.dumps(out))
+    return out
+
+
+def named_config(name: str):
+    """A preset, or ``config5@N`` (config 5's sweep point at n=N under its
+    own law) or ``config5@N/LAW`` (under the delivery law LAW)."""
+    if not name.startswith("config5@"):
+        return preset(name)
+    n, _, law = name.split("@", 1)[1].partition("/")
+    cfg = sweep_point(int(n))
+    return dataclasses.replace(cfg, delivery=law).validate() if law else cfg
+
+
+def cmd_trace(args) -> int:
+    """Each configuration through the torch backend on the card under
+    ``torch.profiler``: one JSON line each with the device's busy share of
+    the traced runs' window, its time by kernel name and the runs' host
+    times, after a line with the card's name and power limit."""
+    from byzantinerandomizedconsensus_tpu_torch import trace
+
+    backend = get_backend("torch", kernel=args.kernel)
+    card = trace.card_line()
+    print(card, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = pathlib.Path(args.out_dir or tmp)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name in args.configs:
+            cfg = named_config(name)
+            path = out_dir / f"trace_{name.replace('@', '_n').replace('/', '_')}.json"
+            out = {"config": name, "protocol": cfg.protocol, "adversary": cfg.adversary,
+                   "delivery": cfg.delivery, "n": cfg.n, "instances": cfg.instances,
+                   "kernel": backend.kernel_for(cfg), "runs": args.runs,
+                   **trace.trace_runs(backend, cfg, args.runs, path), "card": card}
+            if args.out_dir:
+                out["trace_file"] = str(path)
+            print(json.dumps(out), flush=True)
+    return 0
+
+
+def cmd_product(args) -> int:
+    """Each configuration as shipped (every instance, its own round cap and
+    delivery law): one warm-up run, then the best of ``--repeats`` timed
+    runs, with every wall and both histograms. One JSON object, keyed by
+    configuration, on stdout and in ``--out`` if given."""
+    backend = get_backend("torch", device=args.device, kernel=args.kernel)
+    out = {"description": "The five benchmark configurations as shipped, through the "
+                          "torch backend: per configuration the run summary, the best "
+                          "of the timed walls and the full round and decision "
+                          "histograms"}
+    for name in args.configs:
+        cfg = sweep_point(SWEEP_POINT_N) if name == "config5" else preset(name)
+        backend.prepare(cfg)
+        backend.run(cfg)  # warm-up
+        runs = [backend.timed_run(cfg) for _ in range(args.repeats)]
+        res = min(runs, key=lambda r: r.wall_s)
+        if any(not (np.array_equal(r.rounds, res.rounds)
+                    and np.array_equal(r.decision, res.decision)) for r in runs):
+            raise RuntimeError(f"{name}: repeated runs differ")
+        entry = summary(res)
+        entry.update(_device_fields(backend), kernel=backend.kernel_for(cfg),
+                     walls_s=[r.wall_s for r in runs],
+                     round_histogram=round_histogram(res).tolist())
+        out[name] = entry
+    text = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    print(text)
     return 0
 
 
@@ -123,6 +206,30 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
     run.set_defaults(fn=cmd_run)
+    prod = sub.add_parser("product", help="the five benchmark configurations as "
+                          "shipped, timed, with histograms, in one JSON")
+    prod.add_argument("--configs", nargs="+", choices=PRODUCT_CONFIGS,
+                      default=list(PRODUCT_CONFIGS), help="a subset to run")
+    prod.add_argument("--repeats", type=int, default=5,
+                      help="timed runs after the warm-up (default 5)")
+    prod.add_argument("--device", default="cuda",
+                      help="cuda (default; raises with no card) or cpu")
+    prod.add_argument("--kernel", choices=KERNELS, default=None,
+                      help="as for run (default: fused on cuda)")
+    prod.add_argument("--out", default=None, help="also write the JSON here")
+    prod.set_defaults(fn=cmd_product)
+    tr = sub.add_parser("trace", help="where each configuration's time goes on the "
+                        "card: a torch.profiler trace of runs")
+    tr.add_argument("--configs", nargs="+",
+                    default=["config1", "config2", "config3", "config4", "config5@512",
+                             "config5@1024", "config5@512/keys", "config5@512/urn"],
+                    help="presets, or config5@N[/LAW] for config 5's sweep point at "
+                         "n=N (under the delivery law LAW)")
+    tr.add_argument("--runs", type=int, default=3, help="traced runs per configuration")
+    tr.add_argument("--kernel", choices=KERNELS, default=None, help="as for run")
+    tr.add_argument("--out-dir", default=None,
+                    help="keep the Chrome traces here (default: not kept)")
+    tr.set_defaults(fn=cmd_trace)
     return ap
 
 

@@ -20,6 +20,7 @@ namespace brc {
 constexpr uint32_t kInitEst = 0;
 constexpr uint32_t kLocalCoin = 1;
 constexpr uint32_t kSharedCoin = 2;
+constexpr uint32_t kByzValue = 5;
 constexpr uint32_t kSched = 6;
 constexpr uint32_t kUrn = 7;
 constexpr uint32_t kUrn2 = 8;

@@ -1,16 +1,20 @@
 """Adversaries-as-data (spec/PROTOCOL.md §6), in torch.
 
-The port's counterpart of the reference ``models/adversaries.py`` for the
-benign adversary and the adaptive family: ``none`` (no faulty replica),
-``adaptive`` (§6.4) and ``adaptive_min`` (§6.4b). An adversary is a static
-per-instance setup (the faulty set) and a per-step injection mapping honest
-outgoing values to ``(values, silent, bias)``:
+The port's counterpart of the reference ``models/adversaries.py`` for every
+static adversary: ``none`` (no faulty replica), ``crash`` (§3.3),
+``byzantine`` (§6.3), ``adaptive`` (§6.4) and ``adaptive_min`` (§6.4b). An
+adversary is a static per-instance setup (the faulty set, the crash rounds)
+and a per-step injection mapping honest outgoing values to
+``(values, silent, bias)``:
 
 - ``values``: (B, n) common per-sender wire values;
 - ``silent``: (B, n) bool sender silences;
 - ``bias``:   (B, 1, n) or (B, R, n) scheduling-bias bits (spec §4 bit 30).
 
-``crash`` and ``byzantine`` raise by name.
+Ben-Or's Byzantine pairing under the keys law needs the reference's
+(B, n, n) per-receiver equivocation matrix, which is not ported: it raises
+by name. Under a count-level law the urn recomputes the two-faced class
+values itself (``ops/urn.py::byz_class_values``).
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from __future__ import annotations
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models.faults import fault_prone_mask
+from byzantinerandomizedconsensus_tpu_torch.ops import prf
 
-PORTED = ("none", "adaptive", "adaptive_min")
+PORTED = ("none", "crash", "byzantine", "adaptive", "adaptive_min")
+ADAPTIVE = ("adaptive", "adaptive_min")
 
 
 def faulty_mask(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
@@ -39,14 +45,33 @@ def observed_minority(honest_values: torch.Tensor, faulty: torch.Tensor) -> torc
     return (h1 <= h0).to(torch.uint8)
 
 
+def crash_rounds(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
+    """(B, n) int32 crash round per replica (read only where faulty; spec
+    §3.3): one CRASH_ROUND word per replica, mod ``crash_window``."""
+    replica = torch.arange(cfg.n, dtype=torch.int64, device=inst_ids.device)[None, :]
+    c = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None], 0, 0, replica, 0,
+                    prf.CRASH_ROUND, pack=cfg.pack_version)
+    return (c % cfg.crash_window).to(torch.int32)
+
+
+def bracha_byzantine_code(cfg, seed, inst_ids: torch.Tensor, rnd, t) -> torch.Tensor:
+    """(B, n) int64 — the §6.3 reliable-broadcast outcome of each sender at
+    one Bracha step, ``prf_sender(..., tag=0, sender) & 3``: 0 silent, 1
+    sends 0, 2 sends 1, 3 the honest value (read only where faulty)."""
+    send = torch.arange(cfg.n, dtype=torch.int64, device=inst_ids.device)[None, :]
+    return prf.prf_sender(seed, inst_ids.to(torch.int64)[:, None], rnd, t, 0, send,
+                          prf.BYZ_VALUE, pack=cfg.pack_version) & 3
+
+
 def scheduling_bias(cfg, values: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
     """The keys law's scheduling-bias bits (spec §4 bit 30) for one step's
     wire ``values``: all zero (B, 1, n) under ``none``; by receiver class
     under ``adaptive`` ((B, n, n): receiver v prefers 0 iff v < (n+1)/2);
     minority first under ``adaptive_min`` ((B, 1, n)), the minority of the
-    non-faulty wire values, which are the honest ones. ⊥ is always biased."""
+    non-faulty wire values, which are the honest ones. ⊥ is always biased.
+    Only the adaptive family biases scheduling."""
     B, n = values.shape
-    if cfg.adversary == "none":
+    if cfg.adversary not in ADAPTIVE:
         return torch.zeros((B, 1, n), dtype=torch.bool, device=values.device)
     vv = values[:, None, :]
     if cfg.adversary == "adaptive_min":
@@ -67,34 +92,51 @@ class AdversaryModel:
 
     def setup(self, seed, inst_ids: torch.Tensor) -> dict:
         fm = faulty_mask(self.cfg, seed, inst_ids)
-        return {"faulty": fm,
-                "crash_round": torch.zeros(fm.shape, dtype=torch.int32,
-                                           device=fm.device),
-                "faults": None}
+        if self.cfg.adversary == "crash":
+            cr = crash_rounds(self.cfg, seed, inst_ids)
+        else:
+            cr = torch.zeros(fm.shape, dtype=torch.int32, device=fm.device)
+        return {"faulty": fm, "crash_round": cr, "faults": None}
 
     def inject(self, seed, inst_ids, rnd, t, honest_values: torch.Tensor, setup,
                with_bias: bool = True):
         """One step's ``(values, silent, bias)`` (spec §6).
 
-        Faulty replicas of the adaptive family push the observed minority.
-        Under a count-level delivery law the urn derives its strata from the
-        wire values, so the bias is all zero (B, 1, n); under the keys law
-        it is :func:`scheduling_bias`. ``with_bias=False`` returns ``None``
-        for the bias: the per-step kernels recompute it from the wire values
+        Crashed replicas (faulty, from their crash round on) are silent.
+        Under Bracha a Byzantine sender's reliable broadcast is silent or
+        carries 0, 1 or its honest value (:func:`bracha_byzantine_code`);
+        under Ben-Or and a count-level law the honest values pass through,
+        because the urn recomputes the two-faced class values. Faulty
+        replicas of the adaptive family push the observed minority. Under a
+        count-level delivery law the urn derives its strata from the wire
+        values, so the bias is all zero (B, 1, n); under the keys law it is
+        :func:`scheduling_bias`. ``with_bias=False`` returns ``None`` for
+        the bias: the per-step kernels recompute it from the wire values
         themselves, as the reference's Pallas kernels do.
         """
         cfg = self.cfg
         B, n = honest_values.shape
         dev = honest_values.device
         silent = torch.zeros((B, n), dtype=torch.bool, device=dev)
-        if cfg.adversary == "none":
-            values = honest_values
-        else:
-            faulty = setup["faulty"]
+        values = honest_values
+        faulty = setup["faulty"]
+        if cfg.adversary == "crash":
+            silent = faulty & (rnd >= setup["crash_round"])
+        elif cfg.adversary == "byzantine" and cfg.protocol == "bracha":
+            b = bracha_byzantine_code(cfg, seed, inst_ids, rnd, t)
+            silent = faulty & (b == 0)
+            v = torch.where(b == 1, 0, torch.where(b == 2, 1, honest_values.to(torch.int64)))
+            values = torch.where(faulty, v.to(torch.uint8), honest_values)
+        elif cfg.adversary == "byzantine" and not cfg.count_level:
+            raise NotImplementedError(
+                "adversary='byzantine' under protocol='benor' and delivery='keys' "
+                "needs the (B, n, n) per-receiver equivocation matrix (spec §6.3), "
+                "which is not ported yet; the count-level laws run it")
+        elif cfg.adversary in ADAPTIVE:
             minority = observed_minority(honest_values, faulty)
             values = torch.where(faulty, minority[:, None], honest_values)
         if not with_bias:
             return values, silent, None
         if cfg.count_level:
             return values, silent, torch.zeros((B, 1, n), dtype=torch.bool, device=dev)
-        return values, silent, scheduling_bias(cfg, values, setup["faulty"])
+        return values, silent, scheduling_bias(cfg, values, faulty)

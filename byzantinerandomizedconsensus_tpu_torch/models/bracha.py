@@ -22,10 +22,9 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     torch version (models/delivery.py). The kernels recompute the scheduling
     bias from the wire values, so no bias is built for them. ``stats``, when
     a dict, collects the delivery sampler's cost counters — a side output
-    the round math never reads.
+    the round math never reads — over the receivers whose counts are read
+    (the last step's only by undecided replicas), and ``coin_words``.
     """
-    if cfg.protocol != "bracha":
-        raise NotImplementedError(f"protocol={cfg.protocol!r} is not ported yet")
     n, f = cfg.n_eff, cfg.f
     est, decided = state["est"], state["decided"]
     counts = make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=counts_fn,
@@ -51,7 +50,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     # Step 2 — broadcast d (bot = 2 is not counted); validated against G1.
     v2, s2, b2 = adv.inject(seed, inst_ids, rnd, 2, d, setup, with_bias)
     s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1)
-    c2_0, c2_1 = counts(2, d, v2, s2, b2)
+    upd = ~decided
+    c2_0, c2_1 = counts(2, d, v2, s2, b2, need=upd)
     w = (c2_1 >= c2_0).to(torch.uint8)
     c = torch.where(w == 1, c2_1, c2_0)
 
@@ -59,8 +59,9 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     decide_now = c >= 2 * f + 1
     adopt = c >= f + 1
     new_est = torch.where(adopt, w, coin)
+    if stats is not None:
+        stats["coin_words"] = coins.coin_words(cfg, upd & ~adopt)
 
-    upd = ~decided
     return {
         "est": torch.where(upd, new_est, est),
         "decided_val": torch.where(upd & decide_now, w, state["decided_val"]),

@@ -26,3 +26,12 @@ def coin_bits(cfg, seed, inst_ids: torch.Tensor, rnd: int) -> torch.Tensor:
     bit = prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, 0, 0, prf.SHARED_COIN,
                       pack=cfg.pack_version).to(torch.uint8)
     return bit.expand(B, cfg.n)
+
+
+def coin_words(cfg, takes_coin: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 — the PRF words a round's coin needs when the replicas
+    ``takes_coin`` (B, n) take it: one per such replica under the local
+    coin, one per instance with any under the shared coin."""
+    if cfg.coin == "local":
+        return takes_coin.sum(dim=-1, dtype=torch.int64)
+    return takes_coin.any(dim=-1).to(torch.int64)

@@ -18,23 +18,24 @@ DELIVERIES = ("keys",) + tuple(_COUNTS_FNS)
 
 
 def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None):
-    """Build the ``counts(t, honest, values, silent, bias) -> (c0, c1)``
-    closure a round body calls once per broadcast step. ``stats``, when a
-    dict, collects the count-level sampler's cost counters; a custom
-    ``counts_fn`` has none."""
+    """Build the ``counts(t, honest, values, silent, bias, need=None) ->
+    (c0, c1)`` closure a round body calls once per broadcast step.
+    ``stats``, when a dict, collects the count-level sampler's cost counters
+    over the receivers ``need`` whose counts are read (default all); a
+    custom ``counts_fn`` has none."""
     if cfg.delivery not in DELIVERIES:
         raise NotImplementedError(
             f"delivery={cfg.delivery!r} is not ported yet; the port runs "
             f"delivery in {DELIVERIES}")
 
-    def counts(t, honest, values, silent, bias):
+    def counts(t, honest, values, silent, bias, need=None):
         if counts_fn is not None:
             return counts_fn(cfg, seed, inst_ids, rnd, t, values, silent,
                              setup["faulty"], honest)
         if cfg.count_level:
             return _COUNTS_FNS[cfg.delivery](cfg, seed, inst_ids, rnd, t, values,
                                              silent, setup["faulty"], honest,
-                                             stats=stats)
+                                             stats=stats, stats_lanes=need)
         return keys_step.step_counts_plain(cfg, seed, inst_ids, rnd, t, values,
                                            silent, setup["faulty"], bias)
 

@@ -1,9 +1,10 @@
 """The per-step round driver.
 
 :func:`run_chunk` is the port's counterpart of the reference's
-``backends/jax_backend.py::_run_chunk``: a loop of
-:func:`models.bracha.round_body` over the whole chunk until every instance
-has decided or the round cap is reached. ``counts_fn`` is the delivery hook
+``backends/jax_backend.py::_run_chunk``: a loop of the protocol's round body
+(:func:`models.benor.round_body` or :func:`models.bracha.round_body`) over
+the whole chunk until every instance has decided or the round cap is
+reached. ``counts_fn`` is the delivery hook
 of the round body: ``None`` runs each delivery law's plain torch version,
 ``ops.keys_step.counts_fn`` or ``ops.urn_step.counts_fn`` the CUDA kernels,
 one launch per broadcast step.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models import bracha
+from byzantinerandomizedconsensus_tpu_torch.models import benor, bracha
 from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import AdversaryModel
 from byzantinerandomizedconsensus_tpu_torch.ops import prf
@@ -25,11 +26,13 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=None)
 
     ``key`` is the PRF seed or ``(k0, k1)`` key (default ``cfg.seed``).
     ``stats``, when a dict, receives the work the run needed, counted over
-    the instances still running in each round: ``instance_rounds`` and the
-    sampler's own counters (``ops/urn2.py``, ``ops/urn.py``).
+    the instances still running in each round: ``instance_rounds``,
+    ``coin_words`` (the coin's PRF words for the replicas that take it) and
+    the sampler's own counters (``ops/urn2.py``, ``ops/urn.py``).
     """
     seed = cfg.seed if key is None else prf.seed_key(key)
     adv = AdversaryModel(cfg)
+    round_body = benor.round_body if cfg.protocol == "benor" else bracha.round_body
     setup = adv.setup(seed, inst_ids)
     faulty = setup["faulty"]
     st = state_mod.init_state(cfg, seed, inst_ids)
@@ -39,7 +42,7 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=None)
     while r < cfg.round_cap and not bool((done_at >= 0).all()):
         running = done_at < 0
         round_stats = {} if stats is not None else None
-        st = bracha.round_body(cfg, seed, inst_ids, r, st, adv, setup,
+        st = round_body(cfg, seed, inst_ids, r, st, adv, setup,
                                counts_fn=counts_fn, stats=round_stats)
         if stats is not None:
             round_stats["instance_rounds"] = torch.ones_like(running, dtype=torch.int64)

@@ -16,9 +16,15 @@ Counterpart of the reference ``ops/pallas_round.py`` (the TPU kernel
 Both are bit-identical to the reference (tests/test_torch_fused_round.py on
 the CPU; chip_smoke.py compares the two on the card).
 
-The kernel's surface is that of the benchmark's main path: protocol bracha,
-delivery urn2, adversary none, faults none, n ≤ 1024 (packing law v1), with
-every init law and both coins. Anything else raises :class:`FusedUnsupported`.
+The kernel's surface: both protocols (benor, bracha), every static adversary
+(none, crash, byzantine, adaptive, adaptive_min), delivery urn2, faults none,
+n ≤ 1024 (packing law v1), every init law and both coins. The host builds
+the adversary's static operands as the reference's kernel does
+(``pallas_round.py:244-265``): a (B, n) faulty plane and, under crash, a
+(B, n) crash-round plane, from :meth:`AdversaryModel.setup`, which needs the
+§3.2 sort; under adversary none there is none. The first correct replica,
+which reports each instance's decision, is found in the kernel by a block
+reduction. Anything else raises :class:`FusedUnsupported`.
 """
 
 from __future__ import annotations
@@ -29,12 +35,18 @@ import functools
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import driver
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import AdversaryModel
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
 
+#: The kernel's protocol and adversary codes (csrc/fused_round.cuh, brc::fused).
+_PROTOCOL_CODES = {"benor": 0, "bracha": 1}
+_ADVERSARY_CODES = {"none": 0, "crash": 1, "byzantine": 2, "adaptive": 3,
+                    "adaptive_min": 4}
+
 SUPPORTED = {
-    "protocol": ("bracha",),
+    "protocol": tuple(_PROTOCOL_CODES),
     "delivery": ("urn2",),
-    "adversary": ("none",),
+    "adversary": tuple(_ADVERSARY_CODES),
     "faults": ("none",),
     "init": ("random", "all0", "all1", "split"),
     "coin": ("local", "shared"),
@@ -71,18 +83,34 @@ def check_fused_supported(cfg) -> None:
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("fused_round").brc_fused_round_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def run_chunk(cfg, inst_ids: torch.Tensor, key=None):
+def adversary_planes(cfg, inst_ids: torch.Tensor, key):
+    """The kernel's static adversary operands on ``inst_ids.device``: the
+    (B, n) uint8 faulty plane (``None`` under adversary none) and the (B, n)
+    int32 crash-round plane (``None`` but under crash), from
+    :meth:`AdversaryModel.setup` under the PRF key ``key``."""
+    if cfg.adversary == "none":
+        return None, None
+    setup = AdversaryModel(cfg).setup(key, inst_ids)
+    faulty = setup["faulty"].to(torch.uint8).contiguous()
+    if cfg.adversary != "crash":
+        return faulty, None
+    return faulty, setup["crash_round"].to(torch.int32).contiguous()
+
+
+def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
     """Simulate one chunk with the CUDA kernel; returns ``(rounds, decision)``.
 
     ``inst_ids`` (B,) int32 on a CUDA device; ``key`` the ``(k0, k1)`` PRF
     key (default: from ``cfg.seed``) — an argument of the kernel, so one
-    build serves every seed. A CPU ``inst_ids`` runs :func:`run_chunk_plain`.
+    build serves every seed. ``planes`` are :func:`adversary_planes` of
+    these ids and key, when the caller has them (default: built here). A CPU
+    ``inst_ids`` runs :func:`run_chunk_plain`.
     """
     global launches
     check_fused_supported(cfg)
@@ -97,12 +125,19 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None):
     B, dev = inst_ids.shape[0], inst_ids.device
     rounds = torch.empty(B, dtype=torch.int32, device=dev)
     decision = torch.empty(B, dtype=torch.uint8, device=dev)
+    faulty, crash_round = (adversary_planes(cfg, inst_ids, (k0, k1)) if planes is None
+                           else planes)
     launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(inst_ids.data_ptr(), rounds.data_ptr(), decision.data_ptr(),
+        rc = launch(inst_ids.data_ptr(),
+                    None if faulty is None else faulty.data_ptr(),
+                    None if crash_round is None else crash_round.data_ptr(),
+                    rounds.data_ptr(), decision.data_ptr(),
                     B, cfg.n, cfg.f, cfg.round_cap,
-                    _INIT_CODES[cfg.init], _COIN_CODES[cfg.coin], k0, k1, stream)
+                    _INIT_CODES[cfg.init], _COIN_CODES[cfg.coin],
+                    _PROTOCOL_CODES[cfg.protocol], _ADVERSARY_CODES[cfg.adversary],
+                    k0, k1, stream)
     if rc != 0:
         raise RuntimeError(f"fused_round kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -116,8 +151,10 @@ def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
 
     ``stats``, when a dict, receives the work the run needed, counted over
     the instances still running in each round: ``instance_rounds``,
-    ``chain_trips`` (urn2 chain draws) and ``chain_seeds`` (segments with at
-    least one draw, each one PRF word) — the inputs of the kernel's bound.
+    ``coin_words`` (the coin's PRF words), ``chain_trips`` (urn2 chain draws)
+    and ``chain_seeds`` (segments with at least one draw, each one PRF
+    word), each over the receivers whose counts are read — the inputs of
+    the kernel's bound.
     """
     check_fused_supported(cfg)
     return driver.run_chunk(cfg, inst_ids, key, stats=stats)

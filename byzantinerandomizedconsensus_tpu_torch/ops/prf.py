@@ -167,6 +167,18 @@ def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
     return threefry2x32(k0, k1, x0, x1)
 
 
+def prf_sender(seed, instance, rnd, step, tag, sender, purpose, pack=1,
+               device=None) -> torch.Tensor:
+    """A PRF draw addressed by *sender* (spec §2 v3 sender-draw rule): the
+    BYZ_VALUE family puts the replica id in ``send`` and a small tag in
+    ``recv``. Under v1 and v2 that is ``prf_u32(..., recv=tag, send=sender)``;
+    v3 swaps the two fields, and raises by name here like every v3 draw."""
+    if pack >= 3:
+        tag, sender = sender, tag
+    return prf_u32(seed, instance, rnd, step, tag, sender, purpose, pack=pack,
+                   device=device)
+
+
 def prf_bit(seed, instance, rnd, step, recv, send, purpose, pack=1,
             device=None) -> torch.Tensor:
     return prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=pack,

@@ -9,11 +9,13 @@ Phases, in order; any failure exits nonzero and prints no result:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build every kernel from ``byzantinerandomizedconsensus_tpu_torch/csrc``
    (``fused_round``, ``keys_step``, ``urn_step``; one ``nvcc`` each, in
-   parallel) and print each one's ptxas registers;
+   parallel) and print each one's ptxas registers, for ``fused_round`` per
+   (protocol, adversary) instantiation;
 3. ``fused_round`` against its plain torch version on the card, on a grid
-   of small configs (every init law, both coins, capped instances) and at
-   config4's shape, with tolerance 0: the outputs are integers drawn from
-   one counter-based PRF, so they must be identical;
+   of small configs (every init law, both coins, capped instances; both
+   protocols under every static adversary, up to n=1024) and at config4's
+   shape, with tolerance 0: the outputs are integers drawn from one
+   counter-based PRF, so they must be identical;
 4. the fused main path: preset config4, all 100,000 instances, through
    ``get_backend("torch")``, held against the reference histograms; its
    throughput, best of 5 after a warm-up; the kernel's and the plain
@@ -38,7 +40,19 @@ Phases, in order; any failure exits nonzero and prints no result:
    D > 0 and the draws the law needs, with the earlier count beside it),
    failing if a kernel beats its bound; the ptxas report of each; and the
    plain path's time;
-7. a ``{"kernels": [...]}`` line, the card line, and last
+7. the other BASELINE configurations as shipped, through
+   ``get_backend("torch")`` and so through ``fused_round``: config1,
+   config2 and config3 against the decision and full round histograms of
+   the reference's product run (``artifacts/product_r5.json``), config 5
+   under its own urn2 law at every n of the sweep (8 × 2000 instances)
+   per instance against ``artifacts/sweep_urn2/``, and the four urn2
+   goldens; for each configuration its throughput (best of 5 after a
+   warm-up), the kernel's time (CUDA events around the launch, the
+   adversary's planes built beforehand) beside the wrapper's and its
+   launches, the plain version's time, the bound counted from the plain
+   version's work counters, and the instantiation's ptxas registers,
+   failing if the kernel beats its bound;
+8. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +85,26 @@ SWEEP_FILES = {
 }
 CONFIG5_DECISIONS = [890, 1110, 0]
 CONFIG5_ROUNDS_HEAD = [0, 73, 1927]
+# The reference's run of every BASELINE configuration as shipped (seed 0,
+# urn2, round cap 256): decision and full round histograms per preset.
+PRODUCT_FILE = "artifacts/product_r5.json"
+# Config 5 under its own urn2 law: the reference's per-instance results for
+# every n of the sweep, four shard files each.
+SWEEP_URN2_FILES = "artifacts/sweep_urn2/bracha_n{n}_f*_adaptive_shared_urn2_s0_i*.npz"
+# The urn2 goldens of spec/golden/golden.npz (configs of spec/golden/regen.py).
+URN2_GOLDENS = {
+    "urn2_benor_byz": dict(protocol="benor", n=16, f=3, adversary="byzantine",
+                           coin="local", seed=9),
+    "urn2_bracha_crash": dict(protocol="bracha", n=10, f=3, adversary="crash",
+                              coin="shared", seed=10),
+    "urn2_bracha_adaptive": dict(protocol="bracha", n=13, f=4, adversary="adaptive",
+                                 coin="shared", seed=11),
+    "urn2_bracha_adaptive_min": dict(protocol="bracha", n=13, f=4,
+                                     adversary="adaptive_min", coin="shared", seed=12),
+}
+# fused_round's instantiations, by the template arguments of its entry.
+FUSED_PROTOCOLS = ("benor", "bracha")
+FUSED_ADVERSARIES = ("none", "crash", "byzantine", "adaptive", "adaptive_min")
 # The goldens of spec/golden/golden.npz on the per-step surface, with the
 # configs of spec/golden/regen.py (delivery "keys" is SimConfig's default).
 GOLDENS = {
@@ -96,6 +131,10 @@ INT_OPS_PER_S = 132 * 128 * 1.98e9
 # reduction (shift, subtract, multiply, shift) and the compare-and-add.
 OPS_PER_PRF_WORD = 20 * 3 + 5 * 2 + 2
 OPS_PER_CHAIN_DRAW = 9
+# The Byzantine adversary's PRF words per faulty sender and round: one per
+# step under Bracha (3 steps), two per step under Ben-Or's two-faced pairing
+# (2 steps), whatever the data.
+BYZ_WORDS_PER_ROUND = {"bracha": 3, "benor": 4}
 # The keys law: a receiver row needs one threefry word for each sender of
 # its crossing class, the class (silent, bias) in which the n - f threshold
 # falls, other than itself (crossing_pairs, counted from each launch's
@@ -184,6 +223,51 @@ def ptxas_summary(name: str) -> str:
     return " / ".join(line.split("info    : ")[-1].strip()
                       for line in _build.build_log(name).splitlines()
                       if "registers" in line or "spill" in line)
+
+
+def fused_ptxas() -> dict:
+    """``{(protocol, adversary): "N registers, S bytes spill stores, L bytes
+    spill loads"}`` of the current build of ``fused_round``, one entry per
+    instantiation, from its ``ptxas -v`` report."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import _build
+
+    out, key = {}, None
+    for line in _build.build_log("fused_round").splitlines():
+        m = re.search(r"fused_round_kernelILi(\d)ELi(\d)E", line)
+        if m:
+            key = (FUSED_PROTOCOLS[int(m.group(1))], FUSED_ADVERSARIES[int(m.group(2))])
+            out[key] = []
+        elif key is not None and ("registers" in line or "spill" in line):
+            out[key].append(line.split("info    : ")[-1].strip())
+    return {k: " / ".join(v) for k, v in out.items()}
+
+
+def adversary_grid():
+    """Both protocols under every static adversary other than config4's
+    (bracha, none), both coins, with round caps that the local coin reaches;
+    and each adversary at a wide n of each protocol."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    out = []
+    for protocol, n in (("bracha", 13), ("benor", 16)):
+        for adversary in FUSED_ADVERSARIES:
+            if (protocol, adversary) == ("bracha", "none"):
+                continue
+            lying = adversary in ("byzantine", "adaptive", "adaptive_min")
+            f = (n - 1) // 3 if protocol == "bracha" else (n - 1) // (5 if lying else 2)
+            for coin in ("shared", "local"):
+                out.append(SimConfig(protocol=protocol, n=n, f=f, instances=512,
+                                     adversary=adversary, coin=coin, delivery="urn2",
+                                     round_cap=32, seed=len(out) + 77))
+    for adversary in FUSED_ADVERSARIES[1:]:
+        out.append(SimConfig(protocol="bracha", n=1024, f=341, instances=16,
+                             adversary=adversary, coin="shared", delivery="urn2",
+                             round_cap=8, seed=len(out)))
+        lying = adversary != "crash"
+        out.append(SimConfig(protocol="benor", n=512, f=102 if lying else 255,
+                             instances=16, adversary=adversary, coin="local",
+                             delivery="urn2", round_cap=8, seed=len(out)))
+    return [c.validate() for c in out]
 
 
 def grid_configs():
@@ -547,6 +631,167 @@ def config5_phase(dev, card):
     return entries
 
 
+def fused_bound(cfg, stats: dict, B: int):
+    """(operations, bytes, PRF words) one run of ``cfg`` over B instances
+    needs, from the plain version's work counters: the chain draws, a PRF
+    word per chain with a draw, per coin taken (per replica under the local
+    coin, per instance under the shared one), per replica at a random init,
+    and per faulty sender and step under the Byzantine adversary; the ids
+    read, the results written and the adversary's planes read once (a byte
+    per replica for the faulty set, four more for the crash rounds)."""
+    byz = BYZ_WORDS_PER_ROUND[cfg.protocol] if cfg.adversary == "byzantine" else 0
+    words = (stats["chain_seeds"] + stats["coin_words"]
+             + (B * cfg.n if cfg.init == "random" else 0)
+             + byz * cfg.f * stats["instance_rounds"])
+    ops = stats["chain_trips"] * OPS_PER_CHAIN_DRAW + words * OPS_PER_PRF_WORD
+    plane = {"none": 0, "crash": 5}.get(cfg.adversary, 1)
+    return ops, B * (4 + 4 + 1 + plane * cfg.n), words
+
+
+def fused_on_path(cfg, ids, reps: int):
+    """The kernel and its plain version on one path's inputs: the kernel's
+    time (CUDA events around ``reps`` launches, the adversary's planes built
+    beforehand), the wrapper's (planes built each call), the plain
+    version's (host clock, synchronised) and its work counters, the max abs
+    error between the two, and the bound. Fails if they differ, or if the
+    kernel beats its bound."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, prf
+
+    planes = fused_round.adversary_planes(cfg, ids, prf.seed_key(cfg.seed))
+    rk, dk = fused_round.run_chunk(cfg, ids, planes=planes)
+    kernel_ms = cuda_ms(lambda: fused_round.run_chunk(cfg, ids, planes=planes), reps)
+    wrapper_ms = cuda_ms(lambda: fused_round.run_chunk(cfg, ids), reps)
+    chunk = get_backend("torch", kernel="plain").chunk_size(cfg)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = [fused_round.run_chunk_plain(cfg, ids[lo:lo + chunk], stats=stats)
+             for lo in range(0, len(ids), chunk)]
+    rp = torch.cat([p[0] for p in parts])
+    dp = torch.cat([p[1] for p in parts])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((rk - rp).abs().max()),
+              int((dk.to(torch.int32) - dp.to(torch.int32)).abs().max()))
+    if err != 0:
+        fail(f"fused_round differs from plain on {cfg} (max abs err {err})")
+    ops, nbytes, words = fused_bound(cfg, stats, len(ids))
+    ops_ms, bytes_ms = ops / INT_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    if kernel_ms < bound_ms:
+        fail(f"fused_round took {kernel_ms:.5f} ms on {cfg}, under its bound of "
+             f"{bound_ms:.5f} ms: the bound's count is wrong")
+    return {"ms": kernel_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": err, "ops": ops, "bytes": nbytes, "prf_words": words,
+            "chain_draws": stats["chain_trips"], "instance_rounds": stats["instance_rounds"]}
+
+
+def shipped_run(backend, cfg, label, card, ptxas, reps=5):
+    """One shipped configuration through the backend a user calls: the run
+    with its launches counted, its throughput (best of 5 after a warm-up),
+    then the kernel and the plain version on its inputs. Returns
+    ``(result, path entry)``."""
+    backend.prepare(cfg)
+    reset_launches()
+    res = backend.timed_run(cfg)
+    launches = read_launches()
+    if launches["fused_round"] < 1 or launches["keys_step"] or launches["urn_step"]:
+        fail(f"{label} did not run through fused_round alone: launches {launches}")
+    backend.timed_run(cfg)  # warm-up
+    walls = [backend.timed_run(cfg).wall_s for _ in range(5)]
+    ids = torch.as_tensor(res.inst_ids, dtype=torch.int32).cuda()
+    entry = fused_on_path(cfg, ids, reps)
+    inst = (cfg.protocol, cfg.adversary)
+    entry.update(config=label, instances=len(res.inst_ids), launches=launches["fused_round"],
+                 instances_per_s=len(res.inst_ids) / min(walls), walls_s=walls,
+                 ptxas=ptxas[inst])
+    say(f"[shipped] {label} ({cfg.protocol}, {cfg.adversary}, n={cfg.n}, f={cfg.f}, "
+        f"{cfg.coin} coin, {len(res.inst_ids)} instances): instances/s = "
+        f"{entry['instances_per_s']} (best of 5 walls {walls} s); fused_round "
+        f"{entry['ms']:.4f} ms (mean of {reps}, CUDA events, planes built beforehand; "
+        f"wrapper {entry['wrapper_ms']:.4f} ms), {launches['fused_round']} launch(es); "
+        f"plain {entry['plain_ms']:.1f} ms; bound {entry['bound_ms']:.5f} ms by "
+        f"{entry['bound_by']} from {entry['ops']:.4g} int ops ({entry['chain_draws']} "
+        f"chain draws, {entry['prf_words']} PRF words, {entry['instance_rounds']} "
+        f"instance-rounds) and {entry['bytes']} bytes; ptxas ({cfg.protocol}, "
+        f"{cfg.adversary}) {ptxas[inst]}; {card}")
+    return res, entry
+
+
+def load_sweep_urn2(n: int, instances: int):
+    paths = sorted(ROOT.glob(SWEEP_URN2_FILES.format(n=n)))
+    if len(paths) != 4:
+        fail(f"expected 4 reference shards for n={n}, found {len(paths)}")
+    parts = [np.load(p) for p in paths]
+    ids = np.concatenate([z["inst_ids"] for z in parts])
+    order = np.argsort(ids)
+    if not np.array_equal(ids[order], np.arange(instances)):
+        fail(f"the urn2 sweep reference at n={n} does not cover ids 0..{instances - 1}")
+    return (np.concatenate([z["rounds"] for z in parts])[order],
+            np.concatenate([z["decision"] for z in parts])[order])
+
+
+def shipped_phase(card):
+    """Phase 7: the other BASELINE configurations as shipped, through
+    ``get_backend("torch")``; returns their path entries."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.cli import (
+        decision_histogram, round_histogram)
+    from byzantinerandomizedconsensus_tpu_torch.config import (
+        SWEEP_NS, SWEEP_POINT_N, SimConfig, sweep_point)
+
+    ptxas = fused_ptxas()
+    backend = get_backend("torch")
+    product = json.loads((ROOT / PRODUCT_FILE).read_text())
+    paths = []
+    for name in ("config1", "config2", "config3"):
+        cfg = preset(name)
+        res, entry = shipped_run(backend, cfg, name, card, ptxas,
+                                 reps=2 if name == "config2" else 5)
+        dh, rh = decision_histogram(res).tolist(), round_histogram(res).tolist()
+        want = product[name]
+        if dh != want["decision_histogram"] or rh != want["round_histogram"]:
+            fail(f"{name} differs from {PRODUCT_FILE}: decisions {dh}, rounds "
+                 f"{[(r, c) for r, c in enumerate(rh) if c]}")
+        say(f"[shipped] {name}: decision_histogram {dh} and the full "
+            f"{len(rh)}-bin round histogram equal {PRODUCT_FILE}; mean_rounds_decided "
+            f"{float(res.rounds[res.decision != 2].mean())}")
+        paths.append(entry)
+    for n in SWEEP_NS:
+        cfg = sweep_point(n)
+        want_rounds, want_dec = load_sweep_urn2(n, cfg.instances)
+        res, entry = shipped_run(backend, cfg, f"config5 n={n}", card, ptxas)
+        bad = (res.rounds != want_rounds) | (res.decision != want_dec)
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            fail(f"config 5 under urn2 at n={n} differs from the reference on "
+                 f"{int(bad.sum())} instances; first id {i}: ({res.rounds[i]}, "
+                 f"{res.decision[i]}) vs ({want_rounds[i]}, {want_dec[i]})")
+        dh, rh = decision_histogram(res).tolist(), round_histogram(res).tolist()
+        if n == SWEEP_POINT_N and (dh != CONFIG5_DECISIONS or rh[:3] != CONFIG5_ROUNDS_HEAD
+                                   or any(rh[3:])):
+            fail(f"config 5 under urn2 at n={n}: histograms {dh}, {rh[:6]}")
+        say(f"[shipped] config 5 urn2 n={n}: {cfg.instances} instances equal to "
+            f"{SWEEP_URN2_FILES.format(n=n)} per instance; decision_histogram {dh}, "
+            f"round_histogram {[(r, c) for r, c in enumerate(rh) if c]}")
+        paths.append(entry)
+    gold = np.load(ROOT / "spec" / "golden" / "golden.npz")
+    for gname, fields in URN2_GOLDENS.items():
+        gcfg = SimConfig(instances=100, round_cap=64, delivery="urn2", **fields).validate()
+        reset_launches()
+        got = backend.run(gcfg)
+        if read_launches()["fused_round"] < 1:
+            fail(f"golden {gname} did not launch fused_round")
+        if not (np.array_equal(got.rounds, gold[f"{gname}__rounds"])
+                and np.array_equal(got.decision, gold[f"{gname}__decision"])):
+            fail(f"golden {gname} differs through fused_round")
+        say(f"[golden] {gname}: 100 instances equal to spec/golden/golden.npz through "
+            f"fused_round")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -570,7 +815,10 @@ def main() -> int:
     took = _build.build()
     say(f"[build] {len(took)} kernel(s) built in {time.perf_counter() - t0:.1f} s: {took}")
     for k in _build.KERNELS:
-        say(f"[build] {k}: {ptxas_summary(k)}")
+        if k != "fused_round":
+            say(f"[build] {k}: {ptxas_summary(k)}")
+    for (protocol, adversary), regs in fused_ptxas().items():
+        say(f"[build] fused_round ({protocol}, {adversary}): {regs}")
 
     # Phase 3: kernel against plain on a grid of small configs.
     t0 = time.perf_counter()
@@ -582,6 +830,17 @@ def main() -> int:
         capped += int((dp == 2).sum())
     if capped == 0:
         fail("the grid reached no capped instance")
+    t1 = time.perf_counter()
+    adv_grid, adv_capped = adversary_grid(), 0
+    for cfg in adv_grid:
+        ids = torch.arange(cfg.instances, dtype=torch.int32, device=dev)
+        _, dp = compare(cfg, ids)
+        adv_capped += int((dp == 2).sum())
+    if adv_capped == 0:
+        fail("the adversary grid reached no capped instance")
+    say(f"[grid] fused_round == plain on {len(adv_grid)} configs of both protocols under "
+        f"every static adversary (n 13, 16, 512, 1024; both coins; {adv_capped} capped "
+        f"instances) in {time.perf_counter() - t1:.1f} s")
     c4 = preset("config4")
     ids4k = torch.arange(4096, dtype=torch.int32, device=dev)
     compare(c4, ids4k)
@@ -630,9 +889,7 @@ def main() -> int:
     if err != 0:
         fail(f"fused_round differs from plain on config4's 100,000 instances "
              f"(max abs err {err})")
-    words = stats["chain_seeds"] + stats["instance_rounds"] + c4.instances * c4.n
-    ops = stats["chain_trips"] * OPS_PER_CHAIN_DRAW + words * OPS_PER_PRF_WORD
-    nbytes = c4.instances * (4 + 4 + 1)  # ids in, rounds and decision out
+    ops, nbytes, words = fused_bound(c4, stats, c4.instances)
     ops_ms, bytes_ms = ops / INT_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     say(f"[kernel] fused_round on config4's 100,000 instances: {kernel_ms:.3f} ms "
         f"(mean of 5, CUDA events); plain {plain_ms:.1f} ms; bound "
@@ -654,6 +911,11 @@ def main() -> int:
 
     # Phase 6: config 5 at n=512 through the per-step kernels.
     kernels += config5_phase(dev, card)
+
+    # Phase 7: the other BASELINE configurations as shipped, through fused_round.
+    t0 = time.perf_counter()
+    kernels[0]["paths"] = shipped_phase(card)
+    say(f"[shipped] phase 7 took {time.perf_counter() - t0:.1f} s")
 
     say(json.dumps({"kernels": kernels}))
     say(card)

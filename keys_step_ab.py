@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Same-call A/B of a per-step kernel against an earlier version of it.
+"""Same-call A/B of a kernel against an earlier version of it.
 
     python3 keys_step_ab.py --kernel urn_step --extract chip_archive/urn_step_old --rev REV
     python3 keys_step_ab.py --kernel urn_step --old chip_archive/urn_step_old
+    python3 keys_step_ab.py --kernel fused_round --old chip_archive/fused_round_old
 
-``--kernel`` is ``keys_step`` (the default) or ``urn_step``. ``--extract``
+``--kernel`` is ``keys_step`` (the default), ``urn_step`` or ``fused_round``.
+``--extract``
 (in a git checkout) writes the earlier version's sources of that kernel
 (``SOURCES``) from revision ``--rev`` into a directory. ``--old`` needs one
 CUDA card and ``nvcc``: it builds that directory's ``<kernel>.cu`` with the
@@ -18,6 +20,13 @@ the two revisions), and times the two kernels in turns (old, new, new, old).
 Each turn takes every launch's device time as ``chip_smoke.py`` does: 20
 launches in a CUDA graph, its replay timed by CUDA events. It prints both
 builds' ptxas registers and spills and the card's name and power limit.
+
+For ``fused_round`` the earlier version is one whose C entry point takes no
+adversary operands (the config4 surface: ids, rounds, decision, then the
+sizes, codes and key), and the run is config4's 100,000 instances in one
+launch each: the two kernels must give identical results and the
+reference's histograms, and each turn is the mean of 5 launches timed by
+CUDA events, as ``chip_smoke.py`` times config4.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -38,6 +48,7 @@ import chip_smoke
 SOURCES = {
     "keys_step": ("keys_step.cu", "keys_step.cuh", "prf.cuh"),
     "urn_step": ("urn_step.cu", "urn_step.cuh", "keys_step.cuh", "prf.cuh"),
+    "fused_round": ("fused_round.cu", "fused_round.cuh", "prf.cuh"),
 }
 LAWS = {name: law for law, name in chip_smoke.STEP_LAWS.items()}
 CSRC = "byzantinerandomizedconsensus_tpu_torch/csrc"
@@ -121,6 +132,68 @@ def ab(kernel: str, old: pathlib.Path) -> None:
               f"{[round(o / n, 2) for o, n in zip(per_old, per_new)]}; {card}", flush=True)
 
 
+def ab_fused(old: pathlib.Path) -> None:
+    """config4 through the current kernel's (bracha, none) instantiation and
+    through an earlier build, in turns (old, new, new, old)."""
+    from byzantinerandomizedconsensus_tpu_torch.config import preset
+    from byzantinerandomizedconsensus_tpu_torch.ops import _build, fused_round, prf
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("no CUDA device is available")
+    card = chip_smoke.card_line()
+    print(f"[card] {card}", flush=True)
+    _build.build(("fused_round",))
+    cfg = preset("config4")
+    ids = torch.arange(cfg.instances, dtype=torch.int32, device="cuda")
+    k0, k1 = prf.seed_key(cfg.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, log = build_old("fused_round", old, pathlib.Path(tmp))
+        for what, text in (("old", log), ("new", _build.build_log("fused_round"))):
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"[ptxas] {what}: {line.strip()}", flush=True)
+        old_fn = lib.brc_fused_round_launch
+        old_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+        old_fn.restype = ctypes.c_int
+
+        def run_old():
+            rounds = torch.empty(cfg.instances, dtype=torch.int32, device="cuda")
+            decision = torch.empty(cfg.instances, dtype=torch.uint8, device="cuda")
+            rc = old_fn(ids.data_ptr(), rounds.data_ptr(), decision.data_ptr(),
+                        cfg.instances, cfg.n, cfg.f, cfg.round_cap,
+                        fused_round._INIT_CODES[cfg.init], fused_round._COIN_CODES[cfg.coin],
+                        k0, k1, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                chip_smoke.fail(f"the earlier fused_round failed to launch: CUDA error {rc}")
+            return rounds, decision
+
+        def run_new():
+            return fused_round.run_chunk(cfg, ids)
+
+        (ro, do), (rn, dn) = run_old(), run_new()
+        torch.cuda.synchronize()
+        if not (torch.equal(ro, rn) and torch.equal(do, dn)):
+            chip_smoke.fail("the earlier and the current fused_round disagree on config4")
+        dh = np.bincount(dn.cpu().numpy(), minlength=3).tolist()
+        rh = np.bincount(rn.cpu().numpy(), minlength=cfg.round_cap + 1).tolist()
+        if dh != chip_smoke.CONFIG4_DECISIONS or rh[:4] != chip_smoke.CONFIG4_ROUNDS_HEAD:
+            chip_smoke.fail(f"config4 histograms differ from the reference: {dh}, {rh[:6]}")
+        print(f"[check] old and new equal on config4's {cfg.instances} instances; "
+              f"decision_histogram {dh}", flush=True)
+        turns = []
+        for which in ("old", "new", "new", "old"):
+            ms = chip_smoke.cuda_ms(run_old if which == "old" else run_new, 5)
+            turns.append((which, ms))
+            print(f"[time] {which}: {ms:.4f} ms per launch (config4, 100,000 instances, "
+                  f"mean of 5, CUDA events; {card})", flush=True)
+        old_ms = sum(m for w, m in turns if w == "old") / 2
+        new_ms = sum(m for w, m in turns if w == "new") / 2
+        print(f"[ab] fused_round on config4: old {old_ms:.4f} ms, new {new_ms:.4f} ms, "
+              f"new/old {new_ms / old_ms:.4f}; turns {[(w, round(m, 4)) for w, m in turns]}; "
+              f"{card}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=tuple(SOURCES), default="keys_step",
@@ -133,6 +206,8 @@ def main() -> int:
         if not args.rev:
             ap.error("--extract needs --rev")
         extract(args.kernel, args.rev, args.extract)
+    elif args.old and args.kernel == "fused_round":
+        ab_fused(args.old)
     elif args.old:
         ab(args.kernel, args.old)
     else:

@@ -187,16 +187,41 @@ def test_setup_from_numpy_refuses_fault_schedules():
                                     "faults": {"fprone": np.zeros((1, 4), bool)}}, "cpu")
 
 
-@pytest.mark.parametrize("adversary", ["crash", "byzantine", "adaptive", "adaptive_min"])
-def test_other_adversaries_raise_by_name(adversary):
-    """crash and byzantine are not ported; the adaptive family is, but not
-    under urn2, whose two-stratum sampler is not ported: each raises by name
-    on its first round."""
-    cfg = SimConfig(protocol="bracha", n=16, f=3, adversary=adversary,
-                    delivery="urn2").validate()
-    ids = torch.arange(2)
-    with pytest.raises(NotImplementedError, match=adversary):
-        adv = AdversaryModel(cfg)
-        setup = adv.setup(cfg.seed, ids)
-        bracha.round_body(cfg, cfg.seed, ids, 0, state_mod.init_state(cfg, cfg.seed, ids),
-                          adv, setup)
+ADVERSARY_CASES = [
+    # (adversary, n, f, coin, delivery, B, rounds)
+    ("crash", 10, 3, "shared", "urn2", 16, 4),
+    ("crash", 64, 21, "local", "urn2", 6, 3),
+    ("byzantine", 10, 3, "shared", "urn2", 16, 4),
+    ("byzantine", 256, 85, "shared", "urn2", 4, 2),
+    ("byzantine", 13, 4, "local", "urn", 12, 3),
+    ("adaptive", 13, 4, "shared", "urn2", 16, 4),
+    ("adaptive", 128, 42, "local", "urn2", 4, 3),
+    ("adaptive_min", 13, 4, "shared", "urn2", 16, 4),
+    ("adaptive_min", 64, 21, "local", "urn2", 6, 3),
+]
+
+
+@pytest.mark.parametrize("case", ADVERSARY_CASES,
+                         ids=[f"{c[0]}-n{c[1]}-{c[3]}-{c[4]}" for c in ADVERSARY_CASES])
+def test_round_body_matches_reference_per_adversary(case):
+    """The Bracha round body under crash (silent senders), byzantine
+    (silent or flipped values on the wire) and the adaptive family, from the
+    same reference state, after every round: the validation counts are taken
+    over the injected values and silences, as the reference takes them."""
+    adversary, n, f, coin, delivery, B, rounds = case
+    cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, adversary=adversary,
+                    coin=coin, delivery=delivery, seed=n + 5).validate()
+    rcfg = _ref(cfg)
+    key = state_mod.key_from_seed(cfg.seed)
+    inst = np.random.default_rng(n).choice(100_000, B, replace=False).astype(np.uint32)
+    inst_t = torch.as_tensor(inst.astype(np.int64))
+    radv = RefAdversaryModel(rcfg)
+    rsetup = radv.setup(cfg.seed, inst, xp=np)
+    adv = AdversaryModel(cfg)
+    setup = state_mod.setup_from_numpy(rsetup, "cpu")
+    rst = ref_state.init_state(rcfg, cfg.seed, inst, xp=np)
+    for r in range(rounds):
+        got = bracha.round_body(cfg, key, inst_t, r, state_mod.state_from_numpy(rst, "cpu"),
+                                adv, setup)
+        rst = ref_bracha.round_body(rcfg, cfg.seed, inst, r, rst, radv, rsetup, xp=np)
+        _assert_state_equal(got, rst, f"round {r}")

@@ -22,8 +22,9 @@ import pytest
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+from byzantinerandomizedconsensus_tpu_torch.models import adversaries
 from byzantinerandomizedconsensus_tpu_torch.ops import (
-    _build, fused_round, keys_step, masks, prf, urn2, urn_step)
+    _build, fused_round, keys_step, masks, prf, urn, urn2, urn_step)
 
 # chip_smoke.py holds the keys bound's count, crossing_pairs.
 _SPEC = importlib.util.spec_from_file_location(
@@ -47,7 +48,17 @@ def host():
     lib.brc_urn2_chain.restype = i32
     lib.brc_urn2_counts.argtypes = [u32] * 7 + [i32] * 6 + [p, p]
     lib.brc_urn2_counts.restype = None
-    lib.brc_host_fused_round.argtypes = [p] * 3 + [i32] * 6 + [u32] * 2
+    lib.brc_urn2_counts_strata.argtypes = [u32] * 7 + [i32] * 6 + [u32, p, p]
+    lib.brc_urn2_counts_strata.restype = None
+    lib.brc_inject.argtypes = [i32] + [u32] * 7 + [i32] * 2
+    lib.brc_inject.restype = i32
+    lib.brc_two_faced_value.argtypes = [u32] * 7
+    lib.brc_two_faced_value.restype = u32
+    lib.brc_benor_report.argtypes = [i32] * 5
+    lib.brc_benor_report.restype = u32
+    lib.brc_benor_update.argtypes = [u32] * 2 + [i32] * 4 + [u32] * 4 + [i32] * 2
+    lib.brc_benor_update.restype = u32
+    lib.brc_host_fused_round.argtypes = [p] * 5 + [i32] * 8 + [u32] * 2
     lib.brc_host_fused_round.restype = None
     return lib
 
@@ -112,15 +123,21 @@ def test_urn2_counts_match_plain(host, n, f):
 
 
 def _host_run(host, cfg, ids):
+    """The host build of the kernel's round loop on ``ids``, with the
+    adversary's planes built by the wrapper's own ``adversary_planes``."""
     B = len(ids)
     ids = np.ascontiguousarray(ids, dtype=np.int32)
     rounds = np.empty(B, dtype=np.int32)
     decision = np.empty(B, dtype=np.uint8)
     k0, k1 = prf.seed_key(cfg.seed)
+    planes = [None if x is None else np.ascontiguousarray(x.numpy()) for x in
+              fused_round.adversary_planes(cfg, torch.as_tensor(ids), (k0, k1))]
     host.brc_host_fused_round(
-        ids.ctypes.data, rounds.ctypes.data, decision.ctypes.data,
+        ids.ctypes.data, *(None if x is None else x.ctypes.data for x in planes),
+        rounds.ctypes.data, decision.ctypes.data,
         B, cfg.n, cfg.f, cfg.round_cap, fused_round._INIT_CODES[cfg.init],
-        fused_round._COIN_CODES[cfg.coin], k0, k1)
+        fused_round._COIN_CODES[cfg.coin], fused_round._PROTOCOL_CODES[cfg.protocol],
+        fused_round._ADVERSARY_CODES[cfg.adversary], k0, k1)
     return rounds, decision
 
 
@@ -147,6 +164,153 @@ def test_host_round_loop_matches_plain_driver(host, case):
     np.testing.assert_array_equal(decision, pd.numpy())
     if cap == 2:
         assert (decision == 2).any(), "the capped case must reach the cap"
+
+
+def ids_with_faulty_zero(cfg, B, seed):
+    """B instance ids of ``cfg``, a quarter of them (under an adversary)
+    with replica 0 faulty, so the first correct replica is not replica 0."""
+    rng = np.random.default_rng(seed)
+    cand = rng.choice(cfg.instances, min(cfg.instances, 16 * B), replace=False)
+    zero = adversaries.faulty_mask(cfg, cfg.seed, torch.as_tensor(cand))[:, 0].numpy()
+    picked = np.concatenate([cand[zero][:B // 4], cand[~zero]])[:B]
+    assert cfg.adversary == "none" or zero.any()
+    return picked
+
+
+# (protocol, adversary, n, f, coin, round_cap, B): every instantiation of the
+# kernel other than config4's (bracha, none), with capped cases.
+ADVERSARY_CASES = [
+    ("bracha", "crash", 10, 3, "shared", 64, 48),
+    ("bracha", "crash", 16, 5, "local", 3, 48),
+    ("bracha", "byzantine", 10, 3, "shared", 64, 48),
+    ("bracha", "byzantine", 16, 5, "local", 64, 48),
+    ("bracha", "adaptive", 13, 4, "shared", 64, 48),
+    ("bracha", "adaptive", 64, 21, "local", 64, 12),
+    ("bracha", "adaptive_min", 13, 4, "shared", 64, 48),
+    ("bracha", "adaptive_min", 16, 5, "local", 2, 48),
+    ("benor", "none", 4, 1, "local", 32, 48),
+    ("benor", "none", 7, 3, "shared", 32, 48),
+    ("benor", "crash", 16, 5, "local", 32, 48),
+    ("benor", "crash", 64, 21, "local", 6, 12),
+    ("benor", "byzantine", 16, 3, "local", 32, 48),
+    ("benor", "byzantine", 11, 2, "shared", 32, 48),
+    ("benor", "adaptive", 16, 3, "local", 32, 48),
+    ("benor", "adaptive_min", 16, 3, "shared", 32, 48),
+]
+
+
+@pytest.mark.parametrize("case", ADVERSARY_CASES,
+                         ids=[f"{c[0]}-{c[1]}-n{c[2]}-{c[4]}-cap{c[5]}" for c in ADVERSARY_CASES])
+def test_host_round_loop_matches_plain_driver_per_adversary(host, case):
+    """Every new (protocol, adversary) instantiation of the kernel's round
+    loop, on ids with a faulty replica 0 among them, against the plain
+    round driver."""
+    protocol, adversary, n, f, coin, cap, B = case
+    cfg = SimConfig(protocol=protocol, n=n, f=f, instances=100_000, adversary=adversary,
+                    coin=coin, round_cap=cap, seed=3 * n + cap,
+                    delivery="urn2").validate()
+    ids = ids_with_faulty_zero(cfg, B, n + cap)
+    rounds, decision = _host_run(host, cfg, ids)
+    pr, pd = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids.astype(np.int32)))
+    np.testing.assert_array_equal(rounds, pr.numpy())
+    np.testing.assert_array_equal(decision, pd.numpy())
+
+
+def test_host_wire_values_match_inject(host):
+    """The kernel's per-sender wire value and silence (crash, Bracha's
+    Byzantine word) and Ben-Or's two-faced class values against
+    ``AdversaryModel.inject`` and ``ops/urn.py::byz_class_values``."""
+    rng = np.random.default_rng(12)
+    k0, k1 = 0x0BADCAFE, 0x12345
+    for protocol, adversary, n, f in (("bracha", "crash", 16, 5),
+                                      ("bracha", "byzantine", 31, 10),
+                                      ("benor", "crash", 16, 7)):
+        cfg = SimConfig(protocol=protocol, n=n, f=f, instances=1000, adversary=adversary,
+                        delivery="urn2").validate()
+        ids = torch.as_tensor(rng.choice(1000, 6, replace=False))
+        adv = adversaries.AdversaryModel(cfg)
+        setup = adv.setup((k0, k1), ids)
+        for rnd, t in ((0, 0), (3, 1), (9, 2)):
+            honest = torch.as_tensor(rng.integers(0, 3, (6, n)).astype(np.uint8))
+            values, silent, _ = adv.inject((k0, k1), ids, rnd, t, honest, setup)
+            for b in range(6):
+                for v in range(n):
+                    got = host.brc_inject(fused_round._ADVERSARY_CODES[adversary], k0, k1,
+                                          int(ids[b]), rnd, t, v, int(honest[b, v]),
+                                          int(setup["faulty"][b, v]),
+                                          int(setup["crash_round"][b, v]))
+                    assert (got & 0xFF, got >> 8) == (int(values[b, v]),
+                                                      int(not silent[b, v])), (b, v)
+    cfg = SimConfig(protocol="benor", n=16, f=3, instances=1000, adversary="byzantine",
+                    delivery="urn2").validate()
+    ids = torch.as_tensor(rng.choice(1000, 6, replace=False))
+    honest = torch.as_tensor(rng.integers(0, 3, (6, 16)).astype(np.uint8))
+    faulty = torch.ones((6, 16), dtype=torch.bool)
+    for rnd, t in ((0, 0), (7, 1)):
+        want = urn.byz_class_values(cfg, (k0, k1), ids, rnd, t, honest, faulty)
+        for h in (0, 1):
+            got = [[host.brc_two_faced_value(k0, k1, int(ids[b]), rnd, t, v, h)
+                    for v in range(16)] for b in range(6)]
+            np.testing.assert_array_equal(np.array(got), want[h].numpy())
+
+
+@pytest.mark.parametrize("adversary", ["adaptive", "adaptive_min"])
+def test_urn2_counts_strata_match_plain(host, adversary):
+    """One receiver's two-stratum counts against ``ops/urn2.py::counts_fn``
+    on random planes, with the receiver's preferred value from its lane
+    (adaptive) or the minority of the honest non-faulty votes
+    (adaptive_min); n=512, f=170 reaches K = D."""
+    for n, f in ((13, 4), (512, 170)):
+        cfg = SimConfig(protocol="bracha", n=n, f=f, instances=1000, adversary=adversary,
+                        delivery="urn2").validate()
+        rng = np.random.default_rng(n)
+        B, inst = 2, np.array([5, 811])
+        honest = rng.choice(3, (B, n), p=(0.45, 0.45, 0.1)).astype(np.uint8)
+        faulty = rng.random((B, n)) < 0.3
+        minority = adversaries.observed_minority(torch.as_tensor(honest),
+                                                 torch.as_tensor(faulty)).numpy()
+        values = np.where(faulty, minority[:, None], honest).astype(np.uint8)
+        silent = rng.random((B, n)) < 0.1
+        c0, c1 = urn2.counts_fn(cfg, (1, 2), torch.as_tensor(inst), 4, 2,
+                                torch.as_tensor(values), torch.as_tensor(silent),
+                                torch.as_tensor(faulty), torch.as_tensor(honest))
+        live = ~silent
+        M = [(live & (values == w)).sum(1) for w in range(3)]
+        out0, out1 = ctypes.c_int(), ctypes.c_int()
+        for b in range(B):
+            for v in range(n):
+                pref = int(v >= (n + 1) // 2) if adversary == "adaptive" else int(minority[b])
+                host.brc_urn2_counts_strata(1, 2, int(inst[b]), 4, 2, v, int(values[b, v]),
+                                            int(live[b, v]), *(int(x[b]) for x in M), n, f,
+                                            pref, ctypes.byref(out0), ctypes.byref(out1))
+                assert (out0.value, out1.value) == (int(c0[b, v]), int(c1[b, v])), (b, v)
+
+
+def test_benor_report_and_update_match_round_body_rules(host):
+    """Ben-Or's report and round's end under both threshold sets against
+    the rules of ``models/benor.py``, on every count pair of a small n."""
+    n, f = 11, 2
+    k0, k1 = 7, 8
+    for lying in (0, 1):
+        rhs = n + f if lying else n
+        for r0 in range(n + 1):
+            for r1 in range(n + 1 - r0):
+                want = 1 if 2 * r1 > rhs else (0 if 2 * r0 > rhs else 2)
+                assert host.brc_benor_report(n, f, lying, r0, r1) == want
+                w = int(r1 >= r0)
+                c = r1 if w else r0
+                decide = (2 * c > n + f) if lying else (c >= f + 1)
+                for coin_code in (0, 1):
+                    coin = int(prf.prf_u32((k0, k1), 9, 3, prf.COIN_STEP,
+                                           5 if coin_code == 0 else 0, 0,
+                                           prf.LOCAL_COIN if coin_code == 0
+                                           else prf.SHARED_COIN)) & 1
+                    est = w if c >= (f + 1 if lying else 1) else coin
+                    word = (3 << 8) | 1
+                    got = host.brc_benor_update(k0, k1, n, f, coin_code, lying, 9, 3, 5,
+                                                word, r0, r1)
+                    assert got == (est | (int(decide) << 2) | ((w if decide else 0) << 3)
+                                   | (4 << 8)), (lying, r0, r1, coin_code)
 
 
 STEP_ADVERSARY = {"none": 0, "adaptive": 1, "adaptive_min": 2}

@@ -135,3 +135,45 @@ def test_validate_rejects_with_reference_message(fields):
     # The same message, naming the port's own chunk sizing.
     assert str(got.value) == str(want.value).replace(
         "backends/jax_backend.py::_chunk_size", "backends/torch_backend.py::chunk_size")
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_prf_sender_matches_reference(pack):
+    """The sender-addressed draw (BYZ_VALUE's family) under packs 1 and 2,
+    where it is ``prf_u32(..., recv=tag, send=sender)``."""
+    rng = np.random.default_rng(30 + pack)
+    inst = rng.integers(0, prf.V2_MAX_INSTANCES, (16, 1))
+    send = rng.integers(0, prf.V1_MAX_N, (1, 64))
+    for tag in (0, 1):
+        rnd = int(rng.integers(0, prf.V2_MAX_ROUNDS))
+        want = ref_prf.prf_sender(9, inst.astype(np.uint32), rnd, 2, tag,
+                                  send.astype(np.uint32), prf.BYZ_VALUE, xp=np, pack=pack)
+        got = prf.prf_sender(9, torch.as_tensor(inst), rnd, 2, tag, torch.as_tensor(send),
+                             prf.BYZ_VALUE, pack=pack)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+        np.testing.assert_array_equal(
+            got.numpy(), prf.prf_u32(9, torch.as_tensor(inst), rnd, 2, tag,
+                                     torch.as_tensor(send), prf.BYZ_VALUE, pack=pack).numpy())
+    with pytest.raises(NotImplementedError, match="v3"):
+        prf.prf_sender(0, 1, 0, 0, 0, 5000, prf.BYZ_VALUE, pack=3)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(protocol="benor", n=4, f=1, instances=1, coin="local", delivery="urn2"),
+    dict(protocol="benor", n=64, f=21, instances=10_000, adversary="crash", coin="local",
+         delivery="urn2"),
+    dict(protocol="bracha", n=256, f=85, instances=1_000, adversary="byzantine",
+         coin="shared", delivery="urn2"),
+    dict(protocol="benor", n=16, f=3, instances=100, adversary="byzantine", coin="local",
+         round_cap=64, seed=9, delivery="urn2"),
+    dict(protocol="bracha", n=10, f=3, instances=100, adversary="crash", coin="shared",
+         round_cap=64, seed=10, delivery="urn2"),
+    dict(protocol="benor", n=11, f=2, adversary="adaptive_min", delivery="urn2"),
+    dict(protocol="benor", n=7, f=3, adversary="crash", delivery="urn2"),
+], ids=["config1", "config2", "config3", "urn2_benor_byz", "urn2_bracha_crash",
+        "benor_lying_n11_f2", "benor_benign_n7_f3"])
+def test_validate_accepts_the_shipped_and_golden_configs(fields):
+    """config1-3 and the goldens' configs pass both packages' checks,
+    including the Protocol A (n > 2f) and B (n > 5f) bounds at their edge."""
+    assert config.SimConfig(**fields).validate() == config.SimConfig(**fields)
+    ref_config.SimConfig(**fields).validate()
