@@ -3,8 +3,9 @@ kernels, or anywhere through the plain torch round driver.
 
 Three kernels, chosen per backend:
 
-- ``"fused"`` launches ``csrc/fused_round.cu`` once per chunk: the whole
-  round loop (delivery urn2; both protocols, every static adversary);
+- ``"fused"`` launches the fused round kernel once per chunk: the whole
+  round loop (deliveries urn2, urn3 and committee; both protocols, every
+  static adversary, every §9 fault schedule, n up to each law's ceiling);
 - ``"step"`` runs the per-step round driver (:func:`models.driver.run_chunk`)
   with a CUDA kernel as each broadcast step's delivery: ``csrc/keys_step.cu``
   under ``delivery="keys"``, ``csrc/urn_step.cu`` under ``delivery="urn"``;
@@ -13,9 +14,10 @@ Three kernels, chosen per backend:
 
 The device is CUDA unless the caller asks for the CPU; with no card present
 and the CPU not asked for, construction raises. The CPU runs ``"plain"``
-only. With no kernel named, CUDA picks ``"fused"`` for urn2 and ``"step"``
-for the per-step laws; the per-step kernels have no §9 fault channel, so a
-fault config under keys or urn raises by name and runs on ``"plain"``.
+only. With no kernel named, CUDA picks ``"fused"`` for every law of its
+surface and ``"step"`` for the per-step laws (keys, urn); the per-step
+kernels have no §9 fault channel, so a fault config under keys or urn raises
+by name and runs on ``"plain"``.
 """
 
 from __future__ import annotations
@@ -45,8 +47,13 @@ PLAIN_SUPPORTED = {
     "adversary": adversaries.PORTED,
     "faults": FAULT_KINDS,
 }
-#: Largest n of the plain path: packing law v2.
-PLAIN_MAX_N = prf.V2_MAX_N
+#: Largest n of the plain path, per delivery law: the full-mesh laws stop
+#: at packing law v2's edge, the committee family at v3's.
+PLAIN_MAX_N = {**{law: prf.V2_MAX_N for law in DELIVERIES}, "committee": prf.V3_MAX_N}
+#: The fused kernel's chunks hold at most this many (instance, replica)
+#: pairs: its u32 state plane and the wrapper's int64 adversary planes stay a
+#: few GB at n = 2^17 (2048 instances) and beyond.
+KERNEL_MAX_PAIRS = 1 << 28
 
 
 class PlainUnsupported(RuntimeError):
@@ -60,7 +67,7 @@ def check_plain_supported(cfg) -> None:
     problems = [f"{field}={getattr(cfg, field)!r}"
                 for field, allowed in PLAIN_SUPPORTED.items()
                 if getattr(cfg, field) not in allowed]
-    if cfg.n > PLAIN_MAX_N:
+    if cfg.n > PLAIN_MAX_N.get(cfg.delivery, prf.V2_MAX_N):
         problems.append(f"n={cfg.n}")
     if (cfg.protocol, cfg.adversary, cfg.delivery) == ("benor", "byzantine", "keys"):
         problems.append("adversary='byzantine' with protocol='benor' under delivery='keys'")
@@ -68,8 +75,8 @@ def check_plain_supported(cfg) -> None:
         surface = ", ".join(f"{k} in {v}" for k, v in PLAIN_SUPPORTED.items())
         raise PlainUnsupported(
             f"kernel='plain' does not support {', '.join(problems)}; its "
-            f"surface is {surface}, n <= {PLAIN_MAX_N}, except Ben-Or's "
-            f"Byzantine pairing under keys")
+            f"surface is {surface}, n <= {prf.V2_MAX_N} (committee: n <= "
+            f"{prf.V3_MAX_N}), except Ben-Or's Byzantine pairing under keys")
 
 
 class TorchBackend(SimulatorBackend):
@@ -94,10 +101,11 @@ class TorchBackend(SimulatorBackend):
 
     def kernel_for(self, cfg: SimConfig) -> str:
         """The kernel a run of ``cfg`` takes: the one asked for, else
-        ``"fused"`` for urn2 and ``"step"`` for the per-step laws."""
+        ``"fused"`` for the laws of its surface and ``"step"`` for the
+        per-step laws."""
         if self.kernel is not None:
             return self.kernel
-        return "fused" if cfg.delivery == "urn2" else "step"
+        return "fused" if cfg.delivery in fused_round.SUPPORTED["delivery"] else "step"
 
     def check_supported(self, cfg: SimConfig) -> None:
         """Raise :class:`~ops.fused_round.FusedUnsupported`,
@@ -115,14 +123,19 @@ class TorchBackend(SimulatorBackend):
 
     def chunk_size(self, cfg: SimConfig) -> int:
         """Instances per call. The kernels take a whole chunk of the spec §2
-        instance field (state is (B, n)); the plain driver holds (B, n) int64
-        planes, so it is bounded by memory. (The plain keys law builds its
+        instance field (4096 ids under v3), the fused kernel at most
+        :data:`KERNEL_MAX_PAIRS` (instance, replica) pairs; the plain driver
+        holds (B, n) int64 planes, so it is bounded by memory. (The plain keys law builds its
         (B, n, n) int64 keys and the partition cut's (B, n, n) bool plane
         :data:`ops.keys_step.PLAIN_PAIRS` triples at a time; what it holds
         whole is ``adaptive``'s (B, n, n) bool bias, one byte per triple.)"""
-        pack_cap = {1: prf.MAX_INSTANCES, 2: prf.V2_MAX_INSTANCES}[cfg.pack_version]
-        if self.kernel_for(cfg) != "plain":
+        pack_cap = {1: prf.MAX_INSTANCES, 2: prf.V2_MAX_INSTANCES,
+                    3: prf.V3_MAX_INSTANCES}[cfg.pack_version]
+        kernel = self.kernel_for(cfg)
+        if kernel == "step":
             return pack_cap
+        if kernel == "fused":
+            return max(1, min(pack_cap, KERNEL_MAX_PAIRS // cfg.n))
         return max(1, min(pack_cap, (1 << 22) // cfg.n))
 
     def prepare(self, cfg: SimConfig) -> None:

@@ -10,6 +10,7 @@ in one JSON, as the reference's ``product`` does.
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512 \
         --delivery keys
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --committee-point 131072 --hist
     python -m byzantinerandomizedconsensus_tpu_torch.cli product --out product.json
     python -m byzantinerandomizedconsensus_tpu_torch.cli trace \
         --configs config3 config5@1024 config5@512/keys
@@ -31,7 +32,8 @@ from byzantinerandomizedconsensus_tpu_torch.backends import get_backend
 from byzantinerandomizedconsensus_tpu_torch.backends.base import SimResult
 from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import KERNELS
 from byzantinerandomizedconsensus_tpu_torch.config import (
-    DELIVERY_KINDS, FAULT_KINDS, PRESETS, SWEEP_POINT_N, preset, sweep_point)
+    DELIVERY_KINDS, FAULT_KINDS, PRESETS, SWEEP_POINT_N, committee_point, preset,
+    sweep_point)
 
 #: The configurations of ``product``: the four presets and config 5's sweep
 #: point, each as shipped.
@@ -85,6 +87,8 @@ def summary(res: SimResult) -> dict:
 def cmd_run(args) -> int:
     if args.sweep_point is not None:
         cfg = sweep_point(args.sweep_point)
+    elif args.committee_point is not None:
+        cfg = committee_point(args.committee_point)
     else:
         cfg = preset(args.preset or "config4")
     overrides = {k: v for k, v in (("instances", args.instances),
@@ -114,10 +118,19 @@ def _device_fields(backend) -> dict:
 
 def named_config(name: str):
     """A preset, or ``config5@N`` (config 5's sweep point at n=N under its
-    own law) or ``config5@N/LAW`` (under the delivery law LAW); a
+    own law) or ``config5@N/LAW`` (under the delivery law LAW), or
+    ``committee@N`` (``committee_point(N)``), or ``r19@N`` (a leg of the
+    committee cost curve of ``artifacts/committee_r19.json``: Bracha, f =
+    N/5, no adversary, shared coin, committee, 2^20/N instances); a
     ``+KIND`` suffix adds the §9 fault schedule KIND."""
     name, _, kind = name.partition("+")
-    if not name.startswith("config5@"):
+    if name.startswith("committee@"):
+        cfg = committee_point(int(name.split("@", 1)[1]))
+    elif name.startswith("r19@"):
+        n = int(name.split("@", 1)[1])
+        cfg = dataclasses.replace(committee_point(n), adversary="none",
+                                  instances=max(1, (1 << 20) // n))
+    elif not name.startswith("config5@"):
         cfg = preset(name)
     else:
         n, _, law = name.split("@", 1)[1].partition("/")
@@ -198,11 +211,16 @@ def build_parser() -> argparse.ArgumentParser:
     which.add_argument("--sweep-point", type=int, default=None, metavar="N",
                        help="config 5's sweep point at n=N (bracha, f=(N-1)//3, "
                             "adaptive, shared coin, 2000 instances)")
+    which.add_argument("--committee-point", type=int, default=None, metavar="N",
+                       help="config 5's shape under the committee family at n=N "
+                            "(spec §10: bracha, f=N//5, adaptive, shared coin, "
+                            "2000 instances; N up to 2^20)")
     run.add_argument("--instances", type=int, default=None,
                      help="run only the first N instances of the config")
     run.add_argument("--delivery", choices=DELIVERY_KINDS, default=None,
-                     help="override the config's delivery law (keys, urn: "
-                          "the per-step kernels)")
+                     help="override the config's delivery law: urn2, urn3 and "
+                          "committee run on the fused kernel, keys and urn on the "
+                          "per-step kernels")
     run.add_argument("--adversary", default=None,
                      help="override the config's adversary")
     run.add_argument("--faults", choices=FAULT_KINDS, default=None,
@@ -210,13 +228,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "recover (crash-recovery windows) | partition (an "
                           "epoch isolating part of the fault-prone set) | "
                           "omission (per-round bursts); on the card through "
-                          "the fused kernel under urn2, else with --kernel plain")
+                          "the fused kernel under urn2, urn3 and committee, else "
+                          "with --kernel plain")
     run.add_argument("--device", default="cuda",
                      help="cuda (default; raises with no card) or cpu")
     run.add_argument("--kernel", choices=KERNELS, default=None,
                      help="fused (the round-loop kernel; default on cuda for "
-                          "urn2), step (the per-step kernels; default on cuda "
-                          "for keys and urn) or plain (torch ops)")
+                          "urn2, urn3 and committee), step (the per-step kernels; "
+                          "default on cuda for keys and urn) or plain (torch ops)")
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
     run.set_defaults(fn=cmd_run)
@@ -238,8 +257,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default=["config1", "config2", "config3", "config4", "config5@512",
                              "config5@1024", "config5@512/keys", "config5@512/urn"],
                     help="presets, or config5@N[/LAW] for config 5's sweep point at "
-                         "n=N (under the delivery law LAW); a +KIND suffix adds the "
-                         "fault schedule KIND (config4+partition)")
+                         "n=N (under the delivery law LAW), committee@N for "
+                         "committee_point(N), r19@N for a leg of the committee cost "
+                         "curve; a +KIND suffix adds the fault schedule KIND "
+                         "(config4+partition)")
     tr.add_argument("--runs", type=int, default=3, help="traced runs per configuration")
     tr.add_argument("--kernel", choices=KERNELS, default=None, help="as for run")
     tr.add_argument("--out-dir", default=None,

@@ -2,9 +2,8 @@
 
 The port's own copy of the reference package's ``config.py``: the same
 fields, defaults, validation rules and messages, so a config built here
-draws exactly what the same config draws in the reference. The committee
-family (spec §10) is not part of the port yet; its extra resilience check
-raises by name instead of running.
+draws exactly what the same config draws in the reference, the committee
+family's resilience check in (C, f_C) included (spec §10.3).
 """
 
 from __future__ import annotations
@@ -119,9 +118,28 @@ class SimConfig:
         elif 2 * self.f >= self.n:
             raise ValueError(f"benor requires n > 2f (got n={self.n}, f={self.f})")
         if self.delivery == "committee":
-            raise NotImplementedError(
-                "delivery='committee' (spec §10) is not ported yet; its "
-                "resilience check needs ops/committee.py")
+            # Committee resilience (spec §10.3): the thresholds count committee
+            # messages, so the protocol's bound must hold in (C, f_C).
+            from byzantinerandomizedconsensus_tpu_torch.ops import committee as _cm
+
+            c = _cm.committee_size(self.n)
+            fc = _cm.committee_fault_budget(self.n, self.f)
+            if self.protocol == "bracha":
+                if 3 * fc >= c:
+                    raise ValueError(
+                        f"committee resilience: bracha requires 3·f_C < C, "
+                        f"got C={c}, f_C={fc} (n={self.n}, f={self.f}; spec "
+                        f"§10.3 — lower f to restore the sortition margin)")
+            elif self.lying_adversary:
+                if 5 * fc >= c:
+                    raise ValueError(
+                        f"committee resilience: benor+{self.adversary} "
+                        f"requires 5·f_C < C, got C={c}, f_C={fc} "
+                        f"(n={self.n}, f={self.f}; spec §10.3)")
+            elif 2 * fc >= c:
+                raise ValueError(
+                    f"committee resilience: benor requires 2·f_C < C, got "
+                    f"C={c}, f_C={fc} (n={self.n}, f={self.f}; spec §10.3)")
         return self
 
 
@@ -149,6 +167,8 @@ def _f_opt(n: int) -> int:
 
 # Config 5 is a sweep (spec §7): bracha, adaptive adversary, shared coin.
 SWEEP_NS = (128, 256, 384, 512, 640, 768, 896, 1024)
+# The opt-in extension past the v1 packing edge (spec §2 v2).
+SWEEP_NS_EXTENDED = SWEEP_NS + (2048,)
 SWEEP_INSTANCES = 2_000
 # The single sweep point that stands in for config 5 where one config is
 # needed: benchmark n, the headline scale.
@@ -160,4 +180,21 @@ def sweep_point(n: int, seed: int = 0, instances: int = SWEEP_INSTANCES) -> SimC
         protocol="bracha", n=n, f=_f_opt(n), instances=instances,
         adversary="adaptive", coin="shared", seed=seed,
         delivery=PRODUCT_DELIVERY,
+    ).validate()
+
+
+# The committee benchmark fault fraction (spec §10.3): f = n/5, the largest
+# simple fraction that keeps every committee size resilient for Bracha once
+# f_C carries its +sqrt(C) sampling margin.
+COMMITTEE_FAULT_DIV = 5
+
+
+def committee_point(n: int, seed: int = 0,
+                    instances: int = SWEEP_INSTANCES) -> SimConfig:
+    """Config 5's shape under the committee family (spec §10): Bracha,
+    adaptive adversary, shared coin, with f = n/5."""
+    return SimConfig(
+        protocol="bracha", n=n, f=n // COMMITTEE_FAULT_DIV,
+        instances=instances, adversary="adaptive", coin="shared", seed=seed,
+        delivery="committee",
     ).validate()

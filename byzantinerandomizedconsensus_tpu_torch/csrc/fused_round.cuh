@@ -7,8 +7,10 @@
 // The PRF is in prf.cuh.
 //
 // All arithmetic is uint32 with wraparound, as the spec (spec/PROTOCOL.md §2,
-// §4b-v2, §5, §6, §9) defines it. Only packing law v1 (n <= 1024) is
-// implemented.
+// §4b-v2, §4c, §5, §6, §9, §10) defines it. Every function that draws takes
+// the packing law as its template argument PACK (prf.cuh), 1 by default: the
+// kernel of fused_round.cu runs v1 only, the wide kernel
+// (fused_round_wide.cuh) v1, v2 and v3.
 #pragma once
 
 #include <stdint.h>
@@ -48,7 +50,9 @@ BRC_HD int min3(int a, int b, int c) {
 // One §4b-v2 segment for one receiver: d ~ HG(Lr, m, Dr) by the
 // corner-minimal conditional-Bernoulli chain (ops/urn2.py::_chain). The
 // chain runs this receiver's own K = min(m, Lr-m, Dr) draws; with K = 0 the
-// segment's seed word is never used, so it is not drawn.
+// segment's seed word is never used, so it is not drawn. The range
+// reduction's shifts are prf.RED_SHIFTS of the law.
+template <int PACK = 1>
 BRC_HD int urn2_chain(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
                       uint32_t t, uint32_t recv, uint32_t seg, int m, int Lr,
                       int Dr) {
@@ -60,11 +64,12 @@ BRC_HD int urn2_chain(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
   const uint32_t P = is_draw ? (uint32_t)m : (uint32_t)Dr;
   uint32_t a = 0;
   if (K > 0) {
-    uint32_t s = prf_u32(k0, k1, inst, rnd, t, recv, seg, kUrn2);
+    constexpr int kPre = PACK == 1 ? 10 : 12, kPost = PACK == 1 ? 22 : 20;
+    uint32_t s = prf<PACK>(k0, k1, inst, rnd, t, recv, seg, kUrn2);
     for (int j = 0; j < K; ++j) {
       s = s * kLcgA + kLcgC;
       const uint32_t u = s ^ (s >> 16);
-      const uint32_t q = ((u >> 10) * (uint32_t)(Lr - j)) >> 22;
+      const uint32_t q = ((u >> kPre) * (uint32_t)(Lr - j)) >> kPost;
       a += (q < P - a) ? 1u : 0u;
     }
   }
@@ -73,31 +78,40 @@ BRC_HD int urn2_chain(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
 
 // A receiver's urn of one broadcast step: the live class totals M0..M2 over
 // all senders (of the receiver's class) less its own live message, their
-// sum L, and the D = max(L - (n-f-1), 0) messages it drops.
+// sum L, and the D = max(L - k, 0) messages it drops for its quota k
+// (n - f - 1 under the full-mesh laws, k_C under the committee family).
 struct Urn {
   int m0, m1, m2, L, D;
 };
 
-BRC_HD Urn urn_of(uint32_t own, bool own_live, int M0, int M1, int M2, int n, int f) {
+// A receiver's urn with delivery quota k: the class totals less its own
+// live message, and D = max(L - k, 0) drops.
+BRC_HD Urn urn_quota(uint32_t own, bool own_live, int M0, int M1, int M2, int k) {
   Urn u;
   u.m0 = M0 - (own_live && own == 0u ? 1 : 0);
   u.m1 = M1 - (own_live && own == 1u ? 1 : 0);
   u.m2 = M2 - (own_live && own == 2u ? 1 : 0);
   u.L = u.m0 + u.m1 + u.m2;
-  u.D = u.L - (n - f - 1) > 0 ? u.L - (n - f - 1) : 0;
+  u.D = u.L - k > 0 ? u.L - k : 0;
   return u;
+}
+
+// The full-mesh urn: quota n - f - 1 (spec §4b).
+BRC_HD Urn urn_of(uint32_t own, bool own_live, int M0, int M1, int M2, int n, int f) {
+  return urn_quota(own, own_live, M0, M1, M2, n - f - 1);
 }
 
 // One receiver's delivered counts (c0, c1) of one broadcast step under
 // §4b-v2 (ops/urn2.py::counts_fn, without strata); its own value is added
 // back after the draw.
+template <int PACK = 1>
 BRC_HD void urn2_counts(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
                         uint32_t t, uint32_t recv, uint32_t own, bool own_live,
                         int M0, int M1, int M2, int n, int f, int* c0, int* c1) {
   const Urn u = urn_of(own, own_live, M0, M1, M2, n, f);
   const int m0 = u.m0, m1 = u.m1, L = u.L, D = u.D;
-  const int d0 = urn2_chain(k0, k1, inst, rnd, t, recv, 2u, m0, L, D);
-  const int d1 = urn2_chain(k0, k1, inst, rnd, t, recv, 3u, m1, L - m0, D - d0);
+  const int d0 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 2u, m0, L, D);
+  const int d1 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 3u, m1, L - m0, D - d0);
   *c0 = m0 - d0 + (own == 0u ? 1 : 0);
   *c1 = m1 - d1 + (own == 1u ? 1 : 0);
 }
@@ -108,6 +122,7 @@ BRC_HD void urn2_counts(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
 // drops over segments 0 and 1 (values 0, then 1; the preferred value's
 // segment is empty and draws nothing), the rest of the urn the other D - Db
 // over segments 2 and 3.
+template <int PACK = 1>
 BRC_HD void urn2_counts_strata(uint32_t k0, uint32_t k1, uint32_t inst,
                                uint32_t rnd, uint32_t t, uint32_t recv,
                                uint32_t own, bool own_live, int M0, int M1,
@@ -119,39 +134,130 @@ BRC_HD void urn2_counts_strata(uint32_t k0, uint32_t k1, uint32_t inst,
   const int mb1 = pref != 1u ? m1 : 0;
   const int Lb = mb0 + mb1 + m2;
   const int Db = D < Lb ? D : Lb;
-  const int db0 = urn2_chain(k0, k1, inst, rnd, t, recv, 0u, mb0, Lb, Db);
-  const int db1 = urn2_chain(k0, k1, inst, rnd, t, recv, 1u, mb1, Lb - mb0, Db - db0);
+  const int db0 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 0u, mb0, Lb, Db);
+  const int db1 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 1u, mb1, Lb - mb0, Db - db0);
   const int mu0 = m0 - mb0, Lu = L - Lb, Du = D - Db;
-  const int du0 = urn2_chain(k0, k1, inst, rnd, t, recv, 2u, mu0, Lu, Du);
-  const int du1 = urn2_chain(k0, k1, inst, rnd, t, recv, 3u, m1 - mb1, Lu - mu0,
-                             Du - du0);
+  const int du0 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 2u, mu0, Lu, Du);
+  const int du1 = urn2_chain<PACK>(k0, k1, inst, rnd, t, recv, 3u, m1 - mb1, Lu - mu0,
+                                   Du - du0);
   *c0 = m0 - db0 - du0 + (own == 0u ? 1 : 0);
   *c1 = m1 - db1 - du1 + (own == 1u ? 1 : 0);
 }
 
-// What the kernel needs to know about the config.
+// One §4c segment (ops/urn3.py::_cheap): the rounded hypergeometric mean
+// Dr·m/Lr plus popcount(nibble seg of u) - 2, clamped to the support
+// [max(Dr - (Lr - m), 0), min(m, Dr)]. All operands are non-negative and
+// Dr <= Lr; with Dr = 0 the result is 0 whatever u is.
+BRC_HD int cheap(uint32_t u, uint32_t seg, int m, int Lr, int Dr) {
+  const uint32_t nib = (u >> (8u * seg)) & 0xFu;
+  const int pop = (int)((nib & 1u) + ((nib >> 1) & 1u) + ((nib >> 2) & 1u) + ((nib >> 3) & 1u));
+  const int den = Lr > 1 ? Lr : 1;
+  const int base = (2 * Dr * m + den) / (2 * den);
+  const int lo = Dr - (Lr - m) > 0 ? Dr - (Lr - m) : 0;
+  const int hi = m < Dr ? m : Dr;
+  const int d = base + pop - 2 > lo ? base + pop - 2 : lo;
+  return d < hi ? d : hi;
+}
+
+// The drops (d0, d1) of values 0 and 1 from a receiver's urn (m0, m1, m2,
+// L, D) by the cheap law on the word u (ops/urn3.py::cheap_split): without
+// strata nibbles 2 and 3 split D; with them (STRATA, the adaptive family,
+// preferred value `pref`) the biased stratum absorbs min(D, Lb) over
+// nibbles 0 and 1 and the rest of the urn the remainder over 2 and 3.
+template <bool STRATA>
+BRC_HD void cheap_split(uint32_t u, int m0, int m1, int m2, int L, int D, uint32_t pref,
+                        int* d0, int* d1) {
+  if constexpr (STRATA) {
+    const int mb0 = pref != 0u ? m0 : 0;
+    const int mb1 = pref != 1u ? m1 : 0;
+    const int Lb = mb0 + mb1 + m2;
+    const int Db = D < Lb ? D : Lb;
+    const int db0 = cheap(u, 0u, mb0, Lb, Db);
+    const int db1 = cheap(u, 1u, mb1, Lb - mb0, Db - db0);
+    const int mu0 = m0 - mb0, Lu = L - Lb, Du = D - Db;
+    const int du0 = cheap(u, 2u, mu0, Lu, Du);
+    const int du1 = cheap(u, 3u, m1 - mb1, Lu - mu0, Du - du0);
+    *d0 = db0 + du0;
+    *d1 = db1 + du1;
+  } else {
+    *d0 = cheap(u, 2u, m0, L, D);
+    *d1 = cheap(u, 3u, m1, L - m0, D - *d0);
+  }
+}
+
+// One receiver's counts (c0, c1) under §4c (ops/urn3.py::counts_fn): the
+// quota n - f - 1, one URN3 word, drawn only when something is dropped; its
+// own value added back.
+template <int PACK, bool STRATA>
+BRC_HD void urn3_counts(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
+                        uint32_t t, uint32_t recv, uint32_t own, bool own_live,
+                        int M0, int M1, int M2, int n, int f, uint32_t pref,
+                        int* c0, int* c1) {
+  const Urn u = urn_of(own, own_live, M0, M1, M2, n, f);
+  int d0 = 0, d1 = 0;
+  if (u.D > 0)
+    cheap_split<STRATA>(prf<PACK>(k0, k1, inst, rnd, t, recv, 0u, kUrn3), u.m0, u.m1,
+                        u.m2, u.L, u.D, pref, &d0, &d1);
+  *c0 = u.m0 - d0 + (own == 0u ? 1 : 0);
+  *c1 = u.m1 - d1 + (own == 1u ? 1 : 0);
+}
+
+// One receiver's counts (c0, c1) under the committee law, spec §10.2
+// (ops/committee.py::counts_fn): the totals range over live committee
+// senders; the quota is k_C; the drop word is COMMITTEE send=1, drawn only
+// when something is dropped; the own message is delivered only to a member.
+template <int PACK, bool STRATA>
+BRC_HD void committee_counts(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
+                             uint32_t t, uint32_t recv, uint32_t own, bool own_live,
+                             bool member, int M0, int M1, int M2, int kq, uint32_t pref,
+                             int* c0, int* c1) {
+  const Urn u = urn_quota(own, own_live, M0, M1, M2, kq);
+  int d0 = 0, d1 = 0;
+  if (u.D > 0)
+    cheap_split<STRATA>(prf<PACK>(k0, k1, inst, rnd, t, recv, 1u, kCommittee), u.m0, u.m1,
+                        u.m2, u.L, u.D, pref, &d0, &d1);
+  *c0 = u.m0 - d0 + (member && own == 0u ? 1 : 0);
+  *c1 = u.m1 - d1 + (member && own == 1u ? 1 : 0);
+}
+
+// Committee membership of replica v at step t (spec §10.1,
+// ops/committee.py::membership_plane): its COMMITTEE send=0 word mod n < C.
+template <int PACK>
+BRC_HD bool committee_member(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
+                             uint32_t t, uint32_t v, int n, int csize) {
+  return prf<PACK>(k0, k1, inst, rnd, t, v, 0u, kCommittee) % (uint32_t)n < (uint32_t)csize;
+}
+
+// What the kernel needs to know about the config. nq and fq are the (n, f)
+// the protocol thresholds are evaluated over: (C, f_C) under the committee
+// family (spec §10.3), else (n, f). kq is the committee's delivery quota
+// k_C = C - f_C - 1 and csize its size C (spec §10.1), read by the committee
+// law only.
 struct Params {
   uint32_t k0, k1;
   int n, f, round_cap;
   int init_code;  // 0 random, 1 all0, 2 all1, 3 split (spec §3.1)
   int coin_code;  // 0 local, 1 shared (spec §5.3)
+  int nq, fq, kq, csize;
 };
 
 // Initial estimate of replica v (models/state.py::init_est).
+template <int PACK = 1>
 BRC_HD uint32_t init_est(const Params& p, uint32_t inst, uint32_t v) {
   switch (p.init_code) {
     case 1: return 0u;
     case 2: return 1u;
     case 3: return v & 1u;
-    default: return prf_u32(p.k0, p.k1, inst, 0u, 0u, v, 0u, kInitEst) & 1u;
+    default: return prf<PACK>(p.k0, p.k1, inst, 0u, 0u, v, 0u, kInitEst) & 1u;
   }
 }
 
 // The coin of replica v in round rnd (models/coins.py).
+template <int PACK = 1>
 BRC_HD uint32_t coin_bit(const Params& p, uint32_t inst, uint32_t rnd, uint32_t v) {
   if (p.coin_code == 1)
-    return prf_u32(p.k0, p.k1, inst, rnd, kCoinStep, 0u, 0u, kSharedCoin) & 1u;
-  return prf_u32(p.k0, p.k1, inst, rnd, kCoinStep, v, 0u, kLocalCoin) & 1u;
+    return prf<PACK>(p.k0, p.k1, inst, rnd, kCoinStep, 0u, 0u, kSharedCoin) & 1u;
+  return prf<PACK>(p.k0, p.k1, inst, rnd, kCoinStep, v, 0u, kLocalCoin) & 1u;
 }
 
 // The round's end of an undecided replica: adopt w, else take the coin;
@@ -194,15 +300,17 @@ BRC_HD bool recover_silent(bool fprone, int down_at, int up_at, int rnd) {
 
 // omission: the per-(instance, round) burst gate, prf(send 1) & 3 == 0, one
 // word per instance and round (models/faults.py::omission_gate).
+template <int PACK = 1>
 BRC_HD bool omission_burst(const Params& p, uint32_t inst, uint32_t rnd) {
-  return (prf_u32(p.k0, p.k1, inst, rnd, 0u, 0u, 1u, kFaultOmit) & 3u) == 0u;
+  return (prf<PACK>(p.k0, p.k1, inst, rnd, 0u, 0u, 1u, kFaultOmit) & 3u) == 0u;
 }
 
 // omission: in a burst round a fault-prone replica is silent by its own bit,
 // prf(recv v) & 1; the word is drawn only then (models/faults.py::omission_bits).
+template <int PACK = 1>
 BRC_HD bool omission_silent(const Params& p, uint32_t inst, uint32_t rnd, uint32_t v,
                             bool fprone, bool burst) {
-  return fprone && burst && (prf_u32(p.k0, p.k1, inst, rnd, 0u, v, 0u, kFaultOmit) & 1u);
+  return fprone && burst && (prf<PACK>(p.k0, p.k1, inst, rnd, 0u, v, 0u, kFaultOmit) & 1u);
 }
 
 // partition: the instance's epoch [part_start, part_heal) holds round rnd.
@@ -225,7 +333,7 @@ BRC_HD void own_side_totals(Sent& s, bool side1, int S0, int S1, int S2) {
 // pairing draws one word b = prf_sender(tag 0) & 3 and is silent (b = 0),
 // sends 0 (b = 1), 1 (b = 2) or its honest value (b = 3). Everyone else sends
 // the honest value.
-template <int PROTO, int ADV>
+template <int PROTO, int ADV, int PACK = 1>
 BRC_HD Sent inject(const Params& p, uint32_t inst, uint32_t rnd, uint32_t t,
                    uint32_t v, uint32_t honest, bool faulty, int crash_round) {
   Sent s{honest, true, 0, 0, 0, 0u};
@@ -233,7 +341,7 @@ BRC_HD Sent inject(const Params& p, uint32_t inst, uint32_t rnd, uint32_t t,
     s.live = !(faulty && (int)rnd >= crash_round);
   } else if constexpr (ADV == fused::kByzantine && PROTO == fused::kBracha) {
     if (faulty) {
-      const uint32_t b = prf_u32(p.k0, p.k1, inst, rnd, t, 0u, v, kByzValue) & 3u;
+      const uint32_t b = prf_sender<PACK>(p.k0, p.k1, inst, rnd, t, 0u, v, kByzValue) & 3u;
       s.live = b != 0u;
       s.own = b == 1u ? 0u : (b == 2u ? 1u : honest);
     }
@@ -244,9 +352,10 @@ BRC_HD Sent inject(const Params& p, uint32_t inst, uint32_t rnd, uint32_t t,
 // The value a faulty sender shows receiver class h under Ben-Or's Byzantine
 // pairing (ops/urn.py::byz_class_values): prf_sender(tag h) % 3, where 2 is
 // ⊥, a live message that is not counted.
+template <int PACK = 1>
 BRC_HD uint32_t two_faced_value(const Params& p, uint32_t inst, uint32_t rnd,
                                 uint32_t t, uint32_t v, uint32_t h) {
-  return prf_u32(p.k0, p.k1, inst, rnd, t, h, v, kByzValue) % 3u;
+  return prf_sender<PACK>(p.k0, p.k1, inst, rnd, t, h, v, kByzValue) % 3u;
 }
 
 // The minority of the honest non-faulty votes h0 (of 0) and h1 (of 1),
@@ -338,11 +447,12 @@ BRC_HD bool step2_valid(const Params& p, uint32_t z, int g10, int g11) {
 
 // Step 2 and the round's end of an undecided replica, from its step-2
 // counts (⊥ is not counted): adopt at f+1, decide at 2f+1, else the coin.
+template <int PACK = 1>
 BRC_HD uint32_t bracha_update(const Params& p, uint32_t inst, uint32_t rnd,
                               uint32_t v, uint32_t word, int c0, int c1) {
   const uint32_t w = c1 >= c0 ? 1u : 0u;
   const int c = w ? c1 : c0;
-  return next_word(word, c >= p.f + 1, c >= 2 * p.f + 1, w, coin_bit(p, inst, rnd, v));
+  return next_word(word, c >= p.f + 1, c >= 2 * p.f + 1, w, coin_bit<PACK>(p, inst, rnd, v));
 }
 
 // Ben-Or (§5.1). Report: the value delivered by more than half of n (of
@@ -355,13 +465,14 @@ BRC_HD uint32_t benor_report(const Params& p, bool lying, int r0, int r1) {
 // Propose and the round's end of an undecided replica, from its step-1
 // counts (⊥ is not counted): w = p1 >= p0; adopt w at 1 delivered vote (f+1
 // under Protocol B), decide at f+1 (2c > n+f), else take the coin.
+template <int PACK = 1>
 BRC_HD uint32_t benor_update(const Params& p, bool lying, uint32_t inst,
                              uint32_t rnd, uint32_t v, uint32_t word, int p0, int p1) {
   const uint32_t w = p1 >= p0 ? 1u : 0u;
   const int c = w ? p1 : p0;
   const bool adopt = c >= (lying ? p.f + 1 : 1);
   const bool decide_now = lying ? 2 * c > p.n + p.f : c >= p.f + 1;
-  return next_word(word, adopt, decide_now, w, coin_bit(p, inst, rnd, v));
+  return next_word(word, adopt, decide_now, w, coin_bit<PACK>(p, inst, rnd, v));
 }
 
 }  // namespace brc

@@ -1,9 +1,9 @@
 // The PRF of spec/PROTOCOL.md §2, shared by every kernel of the port.
 //
-// Threefry-2x32 (20 rounds, first output word) and the packing law v1
-// coordinate layout, in functions that compile for the device (nvcc) and for
-// the host (g++), so the CPU tests can check them against ops/prf.py. All
-// arithmetic is uint32 with wraparound.
+// Threefry-2x32 (20 rounds, first output word) and the coordinate layouts
+// of the packing laws v1, v2 and v3, in functions that compile for the
+// device (nvcc) and for the host (g++), so the CPU tests can check them
+// against ops/prf.py. All arithmetic is uint32 with wraparound.
 #pragma once
 
 #include <stdint.h>
@@ -24,7 +24,9 @@ constexpr uint32_t kByzValue = 5;
 constexpr uint32_t kSched = 6;
 constexpr uint32_t kUrn = 7;
 constexpr uint32_t kUrn2 = 8;
+constexpr uint32_t kUrn3 = 9;
 constexpr uint32_t kFaultOmit = 14;
+constexpr uint32_t kCommittee = 15;
 constexpr uint32_t kCoinStep = 3;
 constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr uint32_t kLcgA = 0x915F77F5u;
@@ -53,6 +55,35 @@ BRC_HD uint32_t prf_u32(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
                         uint32_t purpose) {
   return threefry2x32(k0, k1, (send << 17) | inst,
                       (rnd << 16) | (recv << 6) | (step << 4) | purpose);
+}
+
+// One PRF word under packing law PACK (spec §2; ops/prf.py::prf_u32):
+//   v1 (n <= 1024): prf_u32 above;
+//   v2 (n <= 4096): x0 = send<<19 | inst,  x1 = rnd<<20 | recv<<8 | step<<4 | purpose;
+//   v3 (n >  4096): x0 = send<<20 | recv,  x1 = rnd<<20 | inst<<8 | step<<4 | purpose.
+template <int PACK>
+BRC_HD uint32_t prf(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd, uint32_t step,
+                    uint32_t recv, uint32_t send, uint32_t purpose) {
+  if constexpr (PACK == 1) {
+    return prf_u32(k0, k1, inst, rnd, step, recv, send, purpose);
+  } else if constexpr (PACK == 2) {
+    return threefry2x32(k0, k1, (send << 19) | inst,
+                        (rnd << 20) | (recv << 8) | (step << 4) | purpose);
+  } else {
+    return threefry2x32(k0, k1, (send << 20) | recv,
+                        (rnd << 20) | (inst << 8) | (step << 4) | purpose);
+  }
+}
+
+// A draw addressed by sender (ops/prf.py::prf_sender): recv = tag and
+// send = sender under v1 and v2; v3, whose wide field is recv, swaps them.
+template <int PACK>
+BRC_HD uint32_t prf_sender(uint32_t k0, uint32_t k1, uint32_t inst, uint32_t rnd,
+                           uint32_t step, uint32_t tag, uint32_t sender, uint32_t purpose) {
+  if constexpr (PACK >= 3)
+    return prf<PACK>(k0, k1, inst, rnd, step, sender, tag, purpose);
+  else
+    return prf<PACK>(k0, k1, inst, rnd, step, tag, sender, purpose);
 }
 
 }  // namespace brc

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models import coins, faults
+from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
@@ -23,7 +23,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     counters (the propose step's over undecided replicas only),
     ``coin_words`` and ``fault_words``, as in :func:`models.bracha.round_body`.
     """
-    n, f = cfg.n_eff, cfg.f
+    # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
+    n, f = committee.quorum_params(cfg)
     est, decided = state["est"], state["decided"]
     # The §9 fault masks of this round: extra sender silences after each
     # inject, and the partition side plane for the delivery law.
@@ -34,8 +35,13 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     with_bias = counts_fn is None
 
     def inject(t, honest):
+        """The adversary's wire, then the §9 fault silences, then the
+        committee's membership silence (spec §10.4)."""
         v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias)
-        return v, (s if fsil is None else s | fsil), b
+        if fsil is not None:
+            s = s | fsil
+        msil = committee.step_silence(cfg, seed, inst_ids, rnd, t, stats=stats)
+        return v, (s if msil is None else s | msil), b
 
     lying = cfg.lying_adversary
     quorum_rhs = n + f if lying else n

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models import coins, faults, validation
+from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults, validation
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
@@ -26,7 +26,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     (the last step's only by undecided replicas), ``coin_words`` and, under
     omission, the fault schedule's ``fault_words``.
     """
-    n, f = cfg.n_eff, cfg.f
+    # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
+    n, f = committee.quorum_params(cfg)
     est, decided = state["est"], state["decided"]
     # The §9 fault masks of this round: fault silences join the silent set
     # before the §5.1b validation counts (a fault-silent sender's message
@@ -39,8 +40,13 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     with_bias = counts_fn is None
 
     def inject(t, honest):
+        """The adversary's wire, then the §9 fault silences, then the
+        committee's membership silence (spec §10.4)."""
         v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias)
-        return v, (s if fsil is None else s | fsil), b
+        if fsil is not None:
+            s = s | fsil
+        msil = committee.step_silence(cfg, seed, inst_ids, rnd, t, stats=stats)
+        return v, (s if msil is None else s | msil), b
 
     # Step 0 — broadcast est; majority of delivered (ties -> 1).
     v0, s0, b0 = inject(0, est)
@@ -51,7 +57,7 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     # Step 1 — broadcast m; invalid messages silenced before delivery
     # (spec §5.1b); a decide-proposal needs an absolute > n/2 quorum.
     v1, s1, b1 = inject(1, m)
-    s1 = s1 | validation.validate_step1(cfg, v1, g0_0, g0_1)
+    s1 = s1 | validation.validate_step1(cfg, v1, g0_0, g0_1, nf=(n, f))
     g1_0, g1_1 = validation.live_counts(v1, s1)
     c1_0, c1_1 = counts(1, m, v1, s1, b1)
     one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
@@ -60,7 +66,7 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
 
     # Step 2 — broadcast d (bot = 2 is not counted); validated against G1.
     v2, s2, b2 = inject(2, d)
-    s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1)
+    s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1, nf=(n, f))
     upd = ~decided
     c2_0, c2_1 = counts(2, d, v2, s2, b2, need=upd)
     w = (c2_1 >= c2_0).to(torch.uint8)

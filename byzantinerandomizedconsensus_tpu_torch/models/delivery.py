@@ -4,19 +4,21 @@ The port's counterpart of the reference ``models/delivery.py::make_counts``.
 One closure decides, per step, which delivery and tally implementation runs:
 a caller-supplied ``counts_fn`` (the per-step CUDA kernels,
 ``ops/keys_step.py`` and ``ops/urn_step.py``), the registered count-level
-sampler (§4b ``urn``, §4b-v2 ``urn2``), or the spec-§4 keys law (masks and
-tally, chunked: ``ops/keys_step.py::step_counts_plain``). Every other
-delivery law raises by name. The §9 partition cut reaches the delivery law
+sampler (§4b ``urn``, §4b-v2 ``urn2``, §4c ``urn3``, §10 ``committee``), or
+the spec-§4 keys law (masks and tally, chunked:
+``ops/keys_step.py::step_counts_plain``). The §9 partition cut reaches the delivery law
 here: the count-level samplers take the side plane ``fside``, and so does
 the keys law, which builds its per-(recv, send) cut chunk by chunk.
 """
 
 from __future__ import annotations
 
+from byzantinerandomizedconsensus_tpu_torch.models.committee import check_committee_supported
 from byzantinerandomizedconsensus_tpu_torch.models.faults import check_faults_supported
-from byzantinerandomizedconsensus_tpu_torch.ops import keys_step, urn, urn2
+from byzantinerandomizedconsensus_tpu_torch.ops import committee, keys_step, urn, urn2, urn3
 
-_COUNTS_FNS = {"urn": urn.counts_fn, "urn2": urn2.counts_fn}
+_COUNTS_FNS = {"urn": urn.counts_fn, "urn2": urn2.counts_fn, "urn3": urn3.counts_fn,
+               "committee": committee.counts_fn}
 DELIVERIES = ("keys",) + tuple(_COUNTS_FNS)
 
 
@@ -30,13 +32,15 @@ def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
     side plane (``models/faults.py::round_masks``; the fault silences reach
     the law through ``silent``); the per-step kernels have no fault
     channel, so a ``counts_fn`` under a fault schedule raises
-    :class:`~models.faults.FaultsUnsupported`."""
+    :class:`~models.faults.FaultsUnsupported`, and no committee channel
+    (:class:`~models.committee.CommitteeUnsupported`)."""
     if cfg.delivery not in DELIVERIES:
         raise NotImplementedError(
             f"delivery={cfg.delivery!r} is not ported yet; the port runs "
             f"delivery in {DELIVERIES}")
     if counts_fn is not None:
         check_faults_supported(cfg, "the per-step delivery kernels")
+        check_committee_supported(cfg, "the per-step delivery kernels")
 
     def counts(t, honest, values, silent, bias, need=None):
         if counts_fn is not None:

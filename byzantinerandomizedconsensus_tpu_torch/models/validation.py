@@ -17,9 +17,12 @@ def live_counts(values: torch.Tensor, silent: torch.Tensor):
     return g0, g1
 
 
-def validate_step1(cfg, values, g0_0, g0_1) -> torch.Tensor:
-    """(B, n) bool — invalid step-1 messages, from step-0 global counts."""
-    n, f = cfg.n_eff, cfg.f
+def validate_step1(cfg, values, g0_0, g0_1, nf=None) -> torch.Tensor:
+    """(B, n) bool — invalid step-1 messages, from step-0 global counts.
+    ``nf`` overrides the (n, f) pair of the quorum q = n − f: the committee
+    round body passes its (C, f_C), so the validity interval matches the
+    committee-scoped counts (spec §10.3)."""
+    n, f = nf if nf is not None else (cfg.n_eff, cfg.f)
     q = n - f
     ok1 = g0_1 >= (q + 1) // 2        # x=1: a ties->1 majority of a q-subset
     ok0 = g0_0 >= q // 2 + 1          # x=0: a strict majority
@@ -28,9 +31,10 @@ def validate_step1(cfg, values, g0_0, g0_1) -> torch.Tensor:
     return ~ok
 
 
-def validate_step2(cfg, values, g1_0, g1_1) -> torch.Tensor:
-    """(B, n) bool — invalid step-2 messages, from valid step-1 global counts."""
-    n, f = cfg.n_eff, cfg.f
+def validate_step2(cfg, values, g1_0, g1_1, nf=None) -> torch.Tensor:
+    """(B, n) bool — invalid step-2 messages, from valid step-1 global
+    counts; ``nf`` as in :func:`validate_step1`."""
+    n, f = nf if nf is not None else (cfg.n_eff, cfg.f)
     q = n - f
     okv1 = g1_1 >= n // 2 + 1
     okv0 = g1_0 >= n // 2 + 1

@@ -26,8 +26,14 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 
+#: The fused round kernel's libraries: fused_round.cu (urn2, n <= 1024)
+#: and one per (delivery law, layout) of the wide kernel
+#: (fused_round_wide.cuh; ops/fused_round.py::library).
+FUSED_LIBRARIES = ("fused_round", "fused_round_urn2_r4", "fused_round_urn3_r1",
+                   "fused_round_urn3_r4", "fused_round_committee_r1",
+                   "fused_round_committee_r4", "fused_round_committee_r0")
 #: The CUDA sources of the port, one library each.
-KERNELS = ("fused_round", "keys_step", "urn_step")
+KERNELS = FUSED_LIBRARIES + ("keys_step", "urn_step")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,7 +42,7 @@ GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 def _digest(source: pathlib.Path, flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in [source] + sorted(CSRC.glob("*.cuh")):
+    for path in [source] + sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.inc")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

@@ -4,31 +4,38 @@ Counterpart of the reference ``ops/pallas_round.py`` (the TPU kernel
 ``run_chunk``). Two implementations of one function
 ``(cfg, inst_ids, key) -> (rounds (B,) int32, decision (B,) uint8)``:
 
-- :func:`run_chunk` launches the hand-written CUDA kernel
-  (``csrc/fused_round.cu``): one CTA per instance, one thread per replica,
-  the state word in a register. It takes CUDA tensors; given a CPU tensor it
-  runs the plain version instead, because there is no kernel to run there.
+- :func:`run_chunk` launches the hand-written CUDA kernel: one CTA per
+  instance. Under urn2 at n ≤ 1024 that is ``csrc/fused_round.cu``, one
+  thread per replica; every other law and size runs the wide kernel
+  (``csrc/fused_round_wide.cuh``), one library per (delivery law, layout):
+  one replica per thread for n ≤ 1024 (packing law v1), up to four per
+  thread in registers for n ≤ 4096 (v2), and past that (v3, the committee
+  family) the state words in a (B, n) u32 scratch plane that this wrapper
+  allocates. It takes CUDA tensors; given a CPU tensor it runs the plain
+  version instead, because there is no kernel to run there.
 - :func:`run_chunk_plain` is the plain torch round driver
   (:func:`models.driver.run_chunk`, the mirror of the reference's
   ``backends/jax_backend.py::_run_chunk``) on the kernel's surface. It runs
   on any device.
 
-Both are bit-identical to the reference (tests/test_torch_fused_round.py on
-the CPU; chip_smoke.py compares the two on the card).
+Both are bit-identical to the reference (tests/test_torch_fused_round.py and
+tests/test_torch_fused_laws.py on the CPU; chip_smoke.py compares the two on
+the card).
 
 The kernel's surface: both protocols (benor, bracha), every static adversary
 (none, crash, byzantine, adaptive, adaptive_min), every §9 fault schedule
-(none, recover, partition, omission), delivery urn2, n ≤ 1024 (packing law
-v1), every init law and both coins. The host builds the static operands as
-the reference's kernel does (``pallas_round.py:244-265``), since they need
-the §3.2 sort: :func:`adversary_planes`, a (B, n) faulty plane and, under
-crash, a (B, n) crash-round plane (none under adversary none); and
-:func:`fault_planes`, the schedule's planes from
-:func:`models.faults.setup_faults`, whose fault-prone set is the faulty
-plane under any adversary but none. The omission draws are made in the
-kernel. The first correct replica, which reports each instance's decision,
-is found in the kernel by a block reduction. Anything else raises
-:class:`FusedUnsupported`.
+(none, recover, partition, omission), every init law and both coins, under
+the deliveries urn2 and urn3 up to n = 4096 and committee up to n = 2^20:
+the reference kernel's surface but the §4b ``urn`` law, which runs on the
+per-step urn kernel. The host builds the static operands as the reference's
+kernel does (``pallas_round.py:244-265``), since they need the §3.2 sort:
+:func:`adversary_planes`, a (B, n) faulty plane and, under crash, a (B, n)
+crash-round plane (none under adversary none); and :func:`fault_planes`, the
+schedule's planes from :func:`models.faults.setup_faults`, whose fault-prone
+set is the faulty plane under any adversary but none. The omission draws and
+the committee's membership draws are made in the kernel. The first correct
+replica, which reports each instance's decision, is found in the kernel by a
+block reduction. Anything else raises :class:`FusedUnsupported`.
 """
 
 from __future__ import annotations
@@ -39,25 +46,32 @@ import functools
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import adversaries, driver, faults
+from byzantinerandomizedconsensus_tpu_torch.models.committee import quorum_params
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
+from byzantinerandomizedconsensus_tpu_torch.ops import committee as committee_law
 
-#: The kernel's protocol, adversary and fault codes (csrc/fused_round.cuh,
-#: brc::fused).
+#: The kernel's protocol, adversary, fault and delivery-law codes
+#: (csrc/fused_round.cuh and csrc/fused_round_wide.cuh, brc::fused).
 _PROTOCOL_CODES = {"benor": 0, "bracha": 1}
 _ADVERSARY_CODES = {"none": 0, "crash": 1, "byzantine": 2, "adaptive": 3,
                     "adaptive_min": 4}
 _FAULT_CODES = {"none": 0, "recover": 1, "partition": 2, "omission": 3}
+_LAW_CODES = {"urn2": 0, "urn3": 1, "committee": 2}
 
 SUPPORTED = {
     "protocol": tuple(_PROTOCOL_CODES),
-    "delivery": ("urn2",),
+    "delivery": tuple(_LAW_CODES),
     "adversary": tuple(_ADVERSARY_CODES),
     "faults": tuple(_FAULT_CODES),
     "init": ("random", "all0", "all1", "split"),
     "coin": ("local", "shared"),
 }
-#: Largest n of packing law v1, and the most threads a CTA may have.
-MAX_N = prf.V1_MAX_N
+#: The largest n of each delivery law: the full-mesh laws stop at packing
+#: law v2's edge, the committee family at v3's.
+MAX_N = {"urn2": prf.V2_MAX_N, "urn3": prf.V2_MAX_N, "committee": prf.V3_MAX_N}
+#: Where the laws the kernel does not run are run instead.
+ELSEWHERE = {"urn": "kernel='step' (csrc/urn_step.cu) or kernel='plain'",
+             "keys": "kernel='step' (csrc/keys_step.cu) or kernel='plain'"}
 
 _INIT_CODES = {"random": 0, "all0": 1, "all1": 2, "split": 3}
 _COIN_CODES = {"local": 0, "shared": 1}
@@ -76,22 +90,59 @@ def check_fused_supported(cfg) -> None:
     problems = [f"{field}={getattr(cfg, field)!r}"
                 for field, allowed in SUPPORTED.items()
                 if getattr(cfg, field) not in allowed]
-    if cfg.n > MAX_N:
-        problems.append(f"n={cfg.n}")
+    if cfg.delivery in MAX_N and cfg.n > MAX_N[cfg.delivery]:
+        problems.append(f"n={cfg.n} (delivery={cfg.delivery!r} stops at "
+                        f"n={MAX_N[cfg.delivery]})")
     if problems:
         surface = ", ".join(f"{k} in {v}" for k, v in SUPPORTED.items())
+        where = ELSEWHERE.get(cfg.delivery)
         raise FusedUnsupported(
-            f"the fused round does not support {', '.join(problems)}; its "
-            f"surface is {surface}, n <= {MAX_N}")
+            f"the fused round does not support {', '.join(problems)} at n={cfg.n}; "
+            f"its surface is {surface}, n <= {MAX_N}"
+            + (f"; delivery={cfg.delivery!r} runs on {where}" if where else ""))
+
+
+def layout(cfg) -> int:
+    """The kernel's layout R for ``cfg``: replicas per thread in registers
+    (1 for n ≤ 1024, 4 for n ≤ 4096), or 0 past that, where the state words
+    live in the scratch plane. It fixes the packing law (v1, v2, v3)."""
+    return {1: 1, 2: 4, 3: 0}[cfg.pack_version]
+
+
+def library(cfg) -> str:
+    """The CUDA library (``csrc/<name>.cu``) that runs ``cfg``."""
+    if cfg.delivery == "urn2" and cfg.n <= prf.V1_MAX_N:
+        return "fused_round"
+    return f"fused_round_{cfg.delivery}_r{layout(cfg)}"
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("fused_round").brc_fused_round_launch
+def _launcher(name: str):
+    fn = _build.load(name).brc_fused_round_launch
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_launcher(name: str):
+    fn = _build.load(name).brc_fused_round_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wide_params(cfg) -> tuple:
+    """The wide kernel's threshold and committee parameters ``(nq, fq, kq,
+    csize)``: the (n, f) of the thresholds (:func:`quorum_params`), the
+    committee quota k_C and size C (0 under the other laws)."""
+    nq, fq = quorum_params(cfg)
+    if cfg.delivery != "committee":
+        return nq, fq, 0, 0
+    return (nq, fq, committee_law.committee_quota(cfg.n, cfg.f),
+            committee_law.committee_size(cfg.n))
 
 
 def adversary_planes(cfg, inst_ids: torch.Tensor, key):
@@ -161,34 +212,46 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
     decision = torch.empty(B, dtype=torch.uint8, device=dev)
     if planes is None:
         planes = operand_planes(cfg, inst_ids, (k0, k1))
-    launch = _launcher()
+    name = library(cfg)
+    ptrs = [None if x is None else x.data_ptr() for x in planes]
+    head = (B, cfg.n, cfg.f, cfg.round_cap, _INIT_CODES[cfg.init], _COIN_CODES[cfg.coin])
+    codes = (_PROTOCOL_CODES[cfg.protocol], _ADVERSARY_CODES[cfg.adversary],
+             _FAULT_CODES[cfg.faults])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(inst_ids.data_ptr(),
-                    *(None if x is None else x.data_ptr() for x in planes),
-                    rounds.data_ptr(), decision.data_ptr(),
-                    B, cfg.n, cfg.f, cfg.round_cap,
-                    _INIT_CODES[cfg.init], _COIN_CODES[cfg.coin],
-                    _PROTOCOL_CODES[cfg.protocol], _ADVERSARY_CODES[cfg.adversary],
-                    _FAULT_CODES[cfg.faults], k0, k1, stream)
+        if name == "fused_round":
+            rc = _launcher(name)(inst_ids.data_ptr(), *ptrs, rounds.data_ptr(),
+                                 decision.data_ptr(), *head, *codes, k0, k1, stream)
+        else:
+            # The u32 state words of layout 0, as int32 (torch has no
+            # uint32 arithmetic to need here).
+            scratch = (torch.empty((B, cfg.n), dtype=torch.int32, device=dev)
+                       if layout(cfg) == 0 else None)
+            rc = _wide_launcher(name)(
+                inst_ids.data_ptr(), *ptrs, None if scratch is None else scratch.data_ptr(),
+                rounds.data_ptr(), decision.data_ptr(), *head, *wide_params(cfg), *codes,
+                k0, k1, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_round kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches += 1
     return rounds, decision
 
 
 def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
     """The plain torch round driver (:func:`models.driver.run_chunk` with
-    the urn2 law's plain sampler); returns ``(rounds, decision)`` on
+    the delivery law's plain sampler); returns ``(rounds, decision)`` on
     ``inst_ids.device``.
 
     ``stats``, when a dict, receives the work the run needed, counted over
     the instances still running in each round: ``instance_rounds``,
-    ``coin_words`` (the coin's PRF words), ``chain_trips`` (urn2 chain draws)
-    and ``chain_seeds`` (segments with at least one draw, each one PRF
-    word), each over the receivers whose counts are read, and under
-    omission ``fault_words`` (the burst gate's and the bits' PRF words) —
-    the inputs of the kernel's bound.
+    ``coin_words`` (the coin's PRF words), under urn2 ``chain_trips`` (chain
+    draws) and ``chain_seeds`` (segments with at least one draw, each one
+    PRF word), under urn3 ``urn3_words`` and under committee
+    ``committee_draws`` (the PRF words of the law: a drop word per receiver
+    with a drop, and under committee a membership word per replica and
+    step) with ``cheap_segments`` (the cheap law's segments), each over the
+    receivers whose counts are read, and under omission ``fault_words`` (the
+    burst gate's and the bits' PRF words) — the inputs of the kernel's bound.
     """
     check_fused_supported(cfg)
     return driver.run_chunk(cfg, inst_ids, key, stats=stats)

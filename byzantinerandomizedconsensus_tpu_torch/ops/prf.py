@@ -28,7 +28,8 @@ V3_MAX_N = 1 << 20
 V3_MAX_ROUNDS = 1 << 12
 MAX_N = V3_MAX_N
 
-# (send, rnd, recv) bit offsets per packing law.
+# (send, rnd, recv) bit offsets of packing laws v1 and v2; v3 puts recv in
+# x0 and instance in x1 (:func:`prf_u32`), which a triple cannot describe.
 PACK_SHIFTS = {1: (17, 16, 6), 2: (19, 20, 8)}
 
 # The fused round kernel's resident state word: field -> (bit offset, width).
@@ -144,13 +145,10 @@ def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
                    x1 = rnd<<16 | recv<<6 | step<<4 | purpose.
     v2 (n ≤ 4096): x0 = send<<19 | instance,
                    x1 = rnd<<20 | recv<<8 | step<<4 | purpose.
-    v3 belongs to the committee family, which the port does not run yet.
+    v3 (n > 4096, the committee family): x0 = send<<20 | recv,
+                   x1 = rnd<<20 | instance<<8 | step<<4 | purpose.
     """
-    if pack not in PACK_SHIFTS:
-        if pack == 3:
-            raise NotImplementedError(
-                "packing law v3 (spec §2 v3, n > 4096) is used only by the "
-                "committee family, which is not ported yet")
+    if pack not in (1, 2, 3):
         raise ValueError(f"unknown packing version {pack!r}")
     if device is None:
         for c in (instance, rnd, recv, send):
@@ -158,12 +156,16 @@ def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
                 device = c.device
                 break
     k0, k1 = seed_key(seed)
-    s_send, s_rnd, s_recv = PACK_SHIFTS[pack]
     instance, rnd, recv, send = (_word(c, device)
                                  for c in (instance, rnd, recv, send))
-    x0 = ((send << s_send) | instance) & MASK32
-    x1 = ((rnd << s_rnd) | (recv << s_recv) | (int(step) << 4)
-          | int(purpose)) & MASK32
+    low = (int(step) << 4) | int(purpose)
+    if pack == 3:
+        x0 = ((send << 20) | recv) & MASK32
+        x1 = ((rnd << 20) | (instance << 8) | low) & MASK32
+    else:
+        s_send, s_rnd, s_recv = PACK_SHIFTS[pack]
+        x0 = ((send << s_send) | instance) & MASK32
+        x1 = ((rnd << s_rnd) | (recv << s_recv) | low) & MASK32
     return threefry2x32(k0, k1, x0, x1)
 
 
@@ -172,7 +174,7 @@ def prf_sender(seed, instance, rnd, step, tag, sender, purpose, pack=1,
     """A PRF draw addressed by *sender* (spec §2 v3 sender-draw rule): the
     BYZ_VALUE family puts the replica id in ``send`` and a small tag in
     ``recv``. Under v1 and v2 that is ``prf_u32(..., recv=tag, send=sender)``;
-    v3 swaps the two fields, and raises by name here like every v3 draw."""
+    v3, whose wide field is ``recv``, swaps the two."""
     if pack >= 3:
         tag, sender = sender, tag
     return prf_u32(seed, instance, rnd, step, tag, sender, purpose, pack=pack,

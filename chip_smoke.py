@@ -46,9 +46,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    the reference's product run (``artifacts/product_r5.json``), config 5
    under its own urn2 law at every n of the sweep (8 × 2000 instances)
    per instance against ``artifacts/sweep_urn2/``, and the four urn2
-   goldens; for each configuration its throughput (best of 5 after a
-   warm-up), the kernel's time (CUDA events around the launch, the
-   adversary's planes built beforehand) beside the wrapper's and its
+   goldens; for each configuration its throughput (best of 3 after a
+   warm-up: cut from 5 when phase 9 came), the kernel's time (CUDA events
+   around 3 launches, the adversary's planes built beforehand) beside the
+   wrapper's and its
    launches, the plain version's time, the bound counted from the plain
    version's work counters, and the instantiation's ptxas registers,
    failing if the kernel beats its bound;
@@ -63,7 +64,22 @@ Phases, in order; any failure exits nonzero and prints no result:
    per instance against ``artifacts/sweep_faults/``, all of them against
    the plain version on the card, each with its throughput, the kernel's,
    the wrapper's, the planes' and the plain version's times and the bound;
-9. a ``{"kernels": [...]}`` line, the card line, and last
+9. past n = 1024: the §4c urn3 law, the §10 committee family and the §2
+   v2/v3 packing laws through ``fused_round`` (its wide kernel,
+   ``csrc/fused_round_wide.cuh``): the kernel against its plain version on
+   a grid (urn3 and committee × both protocols × every static adversary ×
+   every §9 schedule, every init, both coins, capped instances, n from 4 to
+   1024, in (1024, 4096] and, for committee, up to 2^20); the committee
+   cost curve of ``artifacts/committee_r19.json`` (n = 2048 … 131,072 and
+   its urn2/urn3 baselines, at its instance counts, against its
+   aggregates), then the committee legs at 2000 instances against plain;
+   ``committee_point(8192)`` and ``committee_point(131072)`` (ids 0-255 per
+   instance against ``artifacts/sweep_committee/``, all 2000 against
+   plain); config 5's shape at n = 2048 under urn2 and urn3 against
+   ``artifacts/n2048_r7.json``; config1-5 under urn3 against the
+   ``preset_rows`` of ``artifacts/divergence_r6.json``, and config4 under
+   urn3 at 100,000 instances against plain; each timed cell as in phase 7;
+10. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,6 +149,24 @@ DIVERGENCE_FAULT_GRID = (
 )
 DIVERGENCE_INSTANCES = 400
 DIVERGENCE_ROUND_CAP = 96
+# Phase 9's references: the committee cost curve (tools/cost_curve.py
+# --committee-r19 of the JAX package: its committee legs and its urn2/urn3
+# baselines), config 5's shape at n=512, 1024 and 2048 under urn2 and urn3,
+# the divergence tool's preset rows under urn3, and committee_point's
+# per-instance results (artifacts/sweep_committee/make_reference.py).
+COMMITTEE_R19_FILE = "artifacts/committee_r19.json"
+N2048_FILE = "artifacts/n2048_r7.json"
+DIVERGENCE_R6_FILE = "artifacts/divergence_r6.json"
+SWEEP_COMMITTEE_FILE = "artifacts/sweep_committee/bracha_n{n}_f{f}_adaptive_shared_committee_s0_i0-256.npz"
+# The aggregates of a leg that a run must reproduce exactly.
+LEG_FIELDS = ("decision_histogram", "mean_rounds_decided", "max_rounds", "rounds_p50",
+              "rounds_p90", "rounds_p99")
+# committee_point's instance count, and the (instance, replica) pairs of one
+# chunk of the plain version in phase 9 (int64 planes of 128 MB).
+COMMITTEE_INSTANCES = 2000
+PHASE9_PLAIN_PAIRS = 1 << 24
+INITS = ("random", "all0", "all1", "split")
+
 # The goldens of spec/golden/golden.npz on the per-step surface, with the
 # configs of spec/golden/regen.py (delivery "keys" is SimConfig's default).
 GOLDENS = {
@@ -159,6 +193,13 @@ INT_OPS_PER_S = 132 * 128 * 1.98e9
 # reduction (shift, subtract, multiply, shift) and the compare-and-add.
 OPS_PER_PRF_WORD = 20 * 3 + 5 * 2 + 2
 OPS_PER_CHAIN_DRAW = 9
+# A §4c cheap-law segment (fused_round.cuh::cheap): at least the nibble's
+# shift and mask, its popcount, the mean's two multiplies, add and divide,
+# the support's two subtracts, max and min, and the clamp's max and min.
+OPS_PER_CHEAP_SEGMENT = 12
+# Where the wide kernel keeps the state words in device memory (layout 0,
+# n > 4096), each round reads and writes each word at least once.
+SCRATCH_BYTES_PER_REPLICA_ROUND = 8
 # The Byzantine adversary's PRF words per faulty sender and round: one per
 # step under Bracha (3 steps), two per step under Ben-Or's two-faced pairing
 # (2 steps), whatever the data.
@@ -253,22 +294,42 @@ def ptxas_summary(name: str) -> str:
                       if "registers" in line or "spill" in line)
 
 
-def fused_ptxas() -> dict:
+def fused_ptxas(lib: str = "fused_round") -> dict:
     """``{(protocol, adversary, faults): "N registers, S bytes spill stores,
-    L bytes spill loads"}`` of the current build of ``fused_round``, one
-    entry per instantiation, from its ``ptxas -v`` report."""
+    L bytes spill loads"}`` of the current build of the fused round library
+    ``lib`` (``fused_round`` or a wide one), one entry per instantiation,
+    from its ``ptxas -v`` report."""
     from byzantinerandomizedconsensus_tpu_torch.ops import _build
 
     out, key = {}, None
-    for line in _build.build_log("fused_round").splitlines():
-        m = re.search(r"fused_round_kernelILi(\d)ELi(\d)ELi(\d)E", line)
-        if m:
+    for line in _build.build_log(lib).splitlines():
+        m = re.search(r"fused_round(?:_wide)?_kernelILi(\d)ELi(\d)ELi(\d)E", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
             key = (FUSED_PROTOCOLS[int(m.group(1))], FUSED_ADVERSARIES[int(m.group(2))],
                    FUSED_FAULTS[int(m.group(3))])
-            out[key] = []
+            out.setdefault(key, [])
+        elif "Compiling entry" in line or "Function properties" in line:
+            key = None
         elif key is not None and ("registers" in line or "spill" in line):
             out[key].append(line.split("info    : ")[-1].strip())
     return {k: " / ".join(v) for k, v in out.items()}
+
+
+def config4_sass_count() -> str:
+    """The SASS instructions of config4's instantiation (bracha, none, none)
+    of ``fused_round``, by ``cuobjdump``, or why they were not counted."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return "not counted (no cuobjdump)"
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path("fused_round"))],
+                         capture_output=True, text=True, timeout=120).stdout
+    for func in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, body = func.partition("\n")
+        if "fused_round_kernelILi1ELi0ELi0EE" in name:
+            return str(len(re.findall(r"/\*[0-9a-f]{4,}\*/\s*(.*?);", body)))
+    return "not counted (no such function)"
 
 
 def adversary_grid():
@@ -667,31 +728,43 @@ def fused_bound(cfg, stats: dict, B: int):
     coin, per instance under the shared one), per replica at a random init,
     per faulty sender and step under the Byzantine adversary, and under
     omission the burst gate's word per instance and round and a bit word per
-    fault-prone replica in a burst round; the ids read, the results written
-    and the adversary's and the fault schedule's planes read once (a byte
-    per replica for the faulty set, four more for the crash rounds; a byte
-    per replica for the fault-prone set under adversary none, whose faulty
-    plane is that set otherwise, eight more for the outage window, one more
-    for the side and eight per instance for the epoch)."""
+    fault-prone replica in a burst round; under urn3 a word per receiver
+    with a drop, under committee a membership word per replica and step and
+    a drop word per receiver with a drop, and their cheap-law segments; the
+    ids read, the results written and the adversary's and the fault
+    schedule's planes read once (a byte per replica for the faulty set, four
+    more for the crash rounds; a byte per replica for the fault-prone set
+    under adversary none, whose faulty plane is that set otherwise, eight
+    more for the outage window, one more for the side and eight per
+    instance for the epoch), and past n = 4096 a read and a write of each
+    state word per instance-round in the scratch plane."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
     byz = BYZ_WORDS_PER_ROUND[cfg.protocol] if cfg.adversary == "byzantine" else 0
-    words = (stats["chain_seeds"] + stats["coin_words"]
+    words = (stats.get("chain_seeds", 0) + stats["coin_words"]
              + (B * cfg.n if cfg.init == "random" else 0)
-             + byz * cfg.f * stats["instance_rounds"] + stats.get("fault_words", 0))
-    ops = stats["chain_trips"] * OPS_PER_CHAIN_DRAW + words * OPS_PER_PRF_WORD
+             + byz * cfg.f * stats["instance_rounds"] + stats.get("fault_words", 0)
+             + stats.get("urn3_words", 0) + stats.get("committee_draws", 0))
+    ops = (stats.get("chain_trips", 0) * OPS_PER_CHAIN_DRAW + words * OPS_PER_PRF_WORD
+           + stats.get("cheap_segments", 0) * OPS_PER_CHEAP_SEGMENT)
     plane = {"none": 0, "crash": 5}.get(cfg.adversary, 1)
     plane += {"none": 0, "recover": 8, "partition": 1, "omission": 0}[cfg.faults]
     plane += cfg.faults != "none" and cfg.adversary == "none"
     per_instance = 8 if cfg.faults == "partition" else 0
-    return ops, B * (4 + 4 + 1 + plane * cfg.n + per_instance), words
+    scratch = (SCRATCH_BYTES_PER_REPLICA_ROUND * cfg.n * stats["instance_rounds"]
+               if fused_round.layout(cfg) == 0 else 0)
+    return ops, B * (4 + 4 + 1 + plane * cfg.n + per_instance) + scratch, words
 
 
-def fused_on_path(cfg, ids, reps: int):
+def fused_on_path(cfg, ids, reps: int, plain_pairs: int = 0):
     """The kernel and its plain version on one path's inputs: the kernel's
     time (CUDA events around ``reps`` launches, the adversary's and the
     fault schedule's planes built beforehand), the planes' build, the
     wrapper's (planes built each call), the plain version's (host clock,
-    synchronised) and its work counters, the max abs error between the two,
-    and the bound. Fails if they differ, or if the kernel beats its bound."""
+    synchronised; chunks of the plain backend's size, or of ``plain_pairs``
+    (instance, replica) pairs) and its work counters, the max abs error
+    between the two, and the bound. Fails if they differ, or if the kernel
+    beats its bound."""
     from byzantinerandomizedconsensus_tpu_torch import get_backend
     from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, prf
 
@@ -701,7 +774,9 @@ def fused_on_path(cfg, ids, reps: int):
     kernel_ms = cuda_ms(lambda: fused_round.run_chunk(cfg, ids, planes=planes), reps)
     planes_ms = cuda_ms(lambda: fused_round.operand_planes(cfg, ids, key), reps)
     wrapper_ms = cuda_ms(lambda: fused_round.run_chunk(cfg, ids), reps)
-    chunk = get_backend("torch", kernel="plain").chunk_size(cfg)
+    del planes
+    chunk = (max(1, plain_pairs // cfg.n) if plain_pairs
+             else get_backend("torch", kernel="plain").chunk_size(cfg))
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -722,17 +797,39 @@ def fused_on_path(cfg, ids, reps: int):
         fail(f"fused_round took {kernel_ms:.5f} ms on {cfg}, under its bound of "
              f"{bound_ms:.5f} ms: the bound's count is wrong")
     return {"ms": kernel_ms, "wrapper_ms": wrapper_ms, "planes_ms": planes_ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "plain_chunk": chunk,
             "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "max_abs_err": err, "ops": ops, "bytes": nbytes, "prf_words": words,
-            "chain_draws": stats["chain_trips"], "instance_rounds": stats["instance_rounds"]}
+            "chain_draws": stats.get("chain_trips", 0),
+            "cheap_segments": stats.get("cheap_segments", 0),
+            "instance_rounds": stats["instance_rounds"]}
 
 
-def shipped_run(backend, cfg, label, card, ptxas, reps=5):
+_PTXAS = {}
+
+
+def instantiation_ptxas(cfg) -> str:
+    """The ptxas report of the instantiation that runs ``cfg``."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
+    lib = fused_round.library(cfg)
+    if lib not in _PTXAS:
+        _PTXAS[lib] = fused_ptxas(lib)
+    return _PTXAS[lib][(cfg.protocol, cfg.adversary, cfg.faults)]
+
+
+#: Timed walls and kernel repeats of the cells of phases 7 and 8, cut from
+#: 5 and 5 when phase 9 came, to keep the script's time near what it was.
+EARLIER_WALLS = EARLIER_REPS = 3
+
+
+def shipped_run(backend, cfg, label, card, reps=5, plain_pairs=0, walls=5):
     """One shipped configuration through the backend a user calls: the run
-    with its launches counted, its throughput (best of 5 after a warm-up),
-    then the kernel and the plain version on its inputs. Returns
+    with its launches counted, its throughput (best of ``walls`` after a
+    warm-up), then the kernel and the plain version on its inputs. Returns
     ``(result, path entry)``."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
     backend.prepare(cfg)
     reset_launches()
     res = backend.timed_run(cfg)
@@ -740,25 +837,28 @@ def shipped_run(backend, cfg, label, card, ptxas, reps=5):
     if launches["fused_round"] < 1 or launches["keys_step"] or launches["urn_step"]:
         fail(f"{label} did not run through fused_round alone: launches {launches}")
     backend.timed_run(cfg)  # warm-up
-    walls = [backend.timed_run(cfg).wall_s for _ in range(5)]
+    n_walls, walls = walls, [backend.timed_run(cfg).wall_s for _ in range(walls)]
     ids = torch.as_tensor(res.inst_ids, dtype=torch.int32).cuda()
-    entry = fused_on_path(cfg, ids, reps)
+    entry = fused_on_path(cfg, ids, reps, plain_pairs)
     inst = (cfg.protocol, cfg.adversary, cfg.faults)
+    lib = fused_round.library(cfg)
     entry.update(config=label, instances=len(res.inst_ids), launches=launches["fused_round"],
                  instances_per_s=len(res.inst_ids) / min(walls), walls_s=walls,
-                 ptxas=ptxas[inst])
+                 library=lib, ptxas=instantiation_ptxas(cfg))
     say(f"[shipped] {label} ({cfg.protocol}, {cfg.adversary}, n={cfg.n}, f={cfg.f}, "
-        f"{cfg.coin} coin, faults {cfg.faults}, {len(res.inst_ids)} instances): "
-        f"instances/s = "
-        f"{entry['instances_per_s']} (best of 5 walls {walls} s); fused_round "
+        f"{cfg.coin} coin, faults {cfg.faults}, {cfg.delivery}, {len(res.inst_ids)} "
+        f"instances): instances/s = "
+        f"{entry['instances_per_s']} (best of {n_walls} walls {walls} s); {lib} "
         f"{entry['ms']:.4f} ms (mean of {reps}, CUDA events, planes built beforehand; "
         f"wrapper {entry['wrapper_ms']:.4f} ms, of which the planes' build "
         f"{entry['planes_ms']:.4f} ms), {launches['fused_round']} launch(es); "
-        f"plain {entry['plain_ms']:.1f} ms; bound {entry['bound_ms']:.5f} ms by "
+        f"plain {entry['plain_ms']:.1f} ms (chunks of {entry['plain_chunk']}); bound "
+        f"{entry['bound_ms']:.5f} ms by "
         f"{entry['bound_by']} from {entry['ops']:.4g} int ops ({entry['chain_draws']} "
-        f"chain draws, {entry['prf_words']} PRF words, {entry['instance_rounds']} "
-        f"instance-rounds) and {entry['bytes']} bytes; ptxas {inst} {ptxas[inst]}; "
-        f"{card}")
+        f"chain draws, {entry['cheap_segments']} cheap segments, {entry['prf_words']} PRF "
+        f"words, {entry['instance_rounds']} instance-rounds) and {entry['bytes']} bytes; "
+        f"kernel/bound {entry['ms'] / entry['bound_ms']:.2f}; ptxas {inst} "
+        f"{entry['ptxas']}; {card}")
     return res, entry
 
 
@@ -784,14 +884,13 @@ def shipped_phase(card):
     from byzantinerandomizedconsensus_tpu_torch.config import (
         SWEEP_NS, SWEEP_POINT_N, SimConfig, sweep_point)
 
-    ptxas = fused_ptxas()
     backend = get_backend("torch")
     product = json.loads((ROOT / PRODUCT_FILE).read_text())
     paths = []
     for name in ("config1", "config2", "config3"):
         cfg = preset(name)
-        res, entry = shipped_run(backend, cfg, name, card, ptxas,
-                                 reps=2 if name == "config2" else 5)
+        res, entry = shipped_run(backend, cfg, name, card, walls=EARLIER_WALLS,
+                                 reps=2 if name == "config2" else EARLIER_REPS)
         dh, rh = decision_histogram(res).tolist(), round_histogram(res).tolist()
         want = product[name]
         if dh != want["decision_histogram"] or rh != want["round_histogram"]:
@@ -804,7 +903,8 @@ def shipped_phase(card):
     for n in SWEEP_NS:
         cfg = sweep_point(n)
         want_rounds, want_dec = load_sweep_urn2(n, cfg.instances)
-        res, entry = shipped_run(backend, cfg, f"config5 n={n}", card, ptxas)
+        res, entry = shipped_run(backend, cfg, f"config5 n={n}", card, walls=EARLIER_WALLS,
+                                 reps=EARLIER_REPS)
         bad = (res.rounds != want_rounds) | (res.decision != want_dec)
         if bad.any():
             i = int(np.flatnonzero(bad)[0])
@@ -928,12 +1028,12 @@ def fault_phase(dev, card):
     divergence_phase(backend)
     say(f"[faults] the divergence fault grid took {time.perf_counter() - t0:.1f} s")
 
-    ptxas = fused_ptxas()
     paths = []
     for kind in FAULT_KINDS:
         cfg = preset("config4", faults=kind)
         z = np.load(ROOT / SWEEP_FAULTS_FILE.format(kind=kind))
-        res, entry = shipped_run(backend, cfg, f"config4 {kind}", card, ptxas)
+        res, entry = shipped_run(backend, cfg, f"config4 {kind}", card, walls=EARLIER_WALLS,
+                                 reps=EARLIER_REPS)
         n_ref = len(z["inst_ids"])
         if not np.array_equal(res.inst_ids[:n_ref], z["inst_ids"]):
             fail(f"the reference of config4 {kind} does not cover the run's first ids")
@@ -951,6 +1051,216 @@ def fault_phase(dev, card):
         entry.update(faults=kind)
         paths.append(entry)
     return paths
+
+
+def wide_grid():
+    """Phase 9's grid: urn3 and committee × both protocols × every static
+    adversary × every §9 schedule at a small n (urn3 13 and 16, committee
+    64, where C = 48 < n), with a round cap the local coin reaches, the coin
+    alternating and every init in turn; the same at n = 1500 (packing law
+    v2) and, for committee, n = 5000 (v3), a few instances with a short cap;
+    urn2 at n = 1500 for both protocols under every adversary; and the
+    edges: n = 4 and 1024 (urn3), 1024 and 4096 (committee), 2^20
+    (committee, two instances)."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    def f_of(law, protocol, n, adversary):
+        lying = adversary in ("byzantine", "adaptive", "adaptive_min")
+        if law == "committee":
+            return n // 5 if protocol == "bracha" else (n // 16 if lying else n // 6)
+        return (n - 1) // 3 if protocol == "bracha" else (n - 1) // (5 if lying else 2)
+
+    out = []
+
+    def add(law, protocol, n, adversary, faults, B, cap):
+        i = len(out)
+        out.append(SimConfig(protocol=protocol, n=n, f=f_of(law, protocol, n, adversary),
+                             instances=B, adversary=adversary, coin=("shared", "local")[i % 2],
+                             init=INITS[(i // 2) % 4], delivery=law, round_cap=cap,
+                             faults=faults, seed=901 + i))
+
+    for law in ("urn3", "committee"):
+        for faults in FUSED_FAULTS:
+            for protocol in FUSED_PROTOCOLS:
+                for adversary in FUSED_ADVERSARIES:
+                    small = 64 if law == "committee" else (13 if protocol == "bracha" else 16)
+                    add(law, protocol, small, adversary, faults, 128, 16)
+                    add(law, protocol, 1500, adversary, faults, 4, 5)
+                    if law == "committee":
+                        add(law, protocol, 5000, adversary, faults, 2, 4)
+    for protocol in FUSED_PROTOCOLS:
+        for k, adversary in enumerate(FUSED_ADVERSARIES):
+            add("urn2", protocol, 1500, adversary, FUSED_FAULTS[k % 4], 4, 5)
+    for law, n, B in (("urn3", 4, 256), ("urn3", 1024, 16), ("committee", 1024, 16),
+                      ("committee", 4096, 8), ("committee", 1 << 20, 2)):
+        add(law, "bracha", n, "none", "none", B, 8)
+        add(law, "bracha", n, "adaptive", "none", B, 8)
+    return [c.validate() for c in out]
+
+
+def leg_fields(res) -> dict:
+    """A run's aggregates as the JAX package's summary computes them."""
+    from byzantinerandomizedconsensus_tpu_torch.cli import summary
+
+    got = summary(res)
+    return {k: got[k] for k in LEG_FIELDS}
+
+
+def check_leg(backend, leg, label):
+    """One leg of a committed record through ``backend`` at its own
+    instance count, launches counted, against the record's aggregates."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(protocol=leg["protocol"], n=leg["n"], f=leg["f"],
+                    instances=leg["instances"], adversary=leg["adversary"], coin=leg["coin"],
+                    seed=leg["seed"], round_cap=leg["round_cap"],
+                    delivery=leg["delivery"]).validate()
+    reset_launches()
+    res = backend.run(cfg)
+    if read_launches()["fused_round"] < 1:
+        fail(f"{label} did not launch fused_round")
+    check_result_against_leg(res, leg, f"{label} ({cfg.instances} instances)")
+    return cfg
+
+
+def check_per_instance(res, path, label):
+    """Instances 0..k-1 of ``res`` against a committed shard."""
+    z = np.load(ROOT / path)
+    n_ref = len(z["inst_ids"])
+    if not np.array_equal(res.inst_ids[:n_ref], z["inst_ids"]):
+        fail(f"the reference of {label} does not cover the run's first ids")
+    bad = (res.rounds[:n_ref] != z["rounds"]) | (res.decision[:n_ref] != z["decision"])
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        fail(f"{label} differs from {path} on {int(bad.sum())} of instances 0-{n_ref - 1}; "
+             f"first id {i}: ({res.rounds[i]}, {res.decision[i]}) vs "
+             f"({z['rounds'][i]}, {z['decision'][i]})")
+    return n_ref
+
+
+def wide_phase(dev, card):
+    """Phase 9: urn3, committee and the packing laws v2/v3 through
+    ``fused_round``; returns the timed cells' path entries."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import (
+        SimConfig, committee_point, sweep_point)
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
+    t0 = time.perf_counter()
+    grid, capped, by_lib = wide_grid(), 0, {}
+    for cfg in grid:
+        ids = torch.arange(cfg.instances, dtype=torch.int32, device=dev)
+        _, dp = compare(cfg, ids)
+        capped += int((dp == 2).sum())
+        lib = fused_round.library(cfg)
+        by_lib[lib] = by_lib.get(lib, 0) + 1
+    if capped == 0:
+        fail("the wide grid reached no capped instance")
+    say(f"[wide] fused_round == plain on {len(grid)} configs (urn3 and committee, both "
+        f"protocols, every static adversary and schedule, every init, both coins, n 4 to "
+        f"2^20; configs by library {by_lib}; {capped} capped instances) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    backend = get_backend("torch")
+    paths = []
+    r19 = json.loads((ROOT / COMMITTEE_R19_FILE).read_text())
+    t0 = time.perf_counter()
+    committee_legs = []
+    for leg in r19["legs"]:
+        cfg = check_leg(backend, leg, f"{COMMITTEE_R19_FILE} leg {leg['delivery']} "
+                                      f"n={leg['n']}")
+        if cfg.delivery == "committee":
+            committee_legs.append(cfg)
+    say(f"[wide] the {len(r19['legs'])} legs of {COMMITTEE_R19_FILE} took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for cfg in committee_legs:
+        cfg = dataclasses.replace(cfg, instances=COMMITTEE_INSTANCES).validate()
+        _, entry = shipped_run(backend, cfg, f"committee n={cfg.n} (r19 shape)", card,
+                               plain_pairs=PHASE9_PLAIN_PAIRS)
+        paths.append(entry)
+    for n in (1024, 8192, 131072):
+        cfg = committee_point(n)
+        res, entry = shipped_run(backend, cfg, f"committee_point({n})", card,
+                                 plain_pairs=PHASE9_PLAIN_PAIRS)
+        paths.append(entry)
+        if n == 1024:
+            continue
+        n_ref = check_per_instance(res, SWEEP_COMMITTEE_FILE.format(n=n, f=cfg.f),
+                                   f"committee_point({n})")
+        say(f"[wide] committee_point({n}): instances 0-{n_ref - 1} equal to "
+            f"{SWEEP_COMMITTEE_FILE.format(n=n, f=cfg.f)} per instance, all "
+            f"{cfg.instances} equal to plain on the card; {leg_fields(res)}")
+    n2048 = json.loads((ROOT / N2048_FILE).read_text())
+    for leg in n2048["legs"]:
+        if leg["n"] != 2048:
+            continue
+        cfg = dataclasses.replace(sweep_point(2048), delivery=leg["delivery"]).validate()
+        res, entry = shipped_run(backend, cfg, f"config5 n=2048 {leg['delivery']}", card,
+                                 plain_pairs=PHASE9_PLAIN_PAIRS)
+        check_result_against_leg(res, leg, f"{N2048_FILE} leg {leg['delivery']} n=2048")
+        paths.append(entry)
+    rows = json.loads((ROOT / DIVERGENCE_R6_FILE).read_text())["preset_rows"]
+    for row in rows:
+        fields = {k: row[k] for k in ("protocol", "n", "f", "adversary", "coin", "seed",
+                                      "round_cap")}
+        cfg = SimConfig(instances=row["instances"], delivery="urn3", **fields).validate()
+        res, entry = shipped_run(backend, cfg, f"{row['preset']} urn3 (divergence row)",
+                                 card, plain_pairs=PHASE9_PLAIN_PAIRS)
+        got = {"mean_rounds_urn3": float(res.rounds.mean()),
+               "p1_urn3": float((res.decision == 1).mean()),
+               "capped_urn3": float((res.decision == 2).mean())}
+        diff = {k: (v, row[k]) for k, v in got.items() if row[k] != v}
+        if diff:
+            fail(f"{row['preset']} under urn3 differs from {DIVERGENCE_R6_FILE}: {diff}")
+        say(f"[wide] {row['preset']} under urn3 ({row['instances']} instances): {got} "
+            f"equal {DIVERGENCE_R6_FILE} preset_rows")
+        paths.append(entry)
+    cfg = preset("config4", delivery="urn3")
+    _, entry = shipped_run(backend, cfg, "config4 urn3", card, plain_pairs=PHASE9_PLAIN_PAIRS)
+    say(f"[wide] config4 under urn3: all {cfg.instances} instances equal to plain on the card")
+    paths.append(entry)
+    return paths
+
+
+def check_result_against_leg(res, leg, label):
+    """A run's aggregates (and its round histogram, where the record has
+    one) against a committed leg."""
+    from byzantinerandomizedconsensus_tpu_torch.cli import round_histogram
+
+    got = leg_fields(res)
+    want = {k: leg[k] for k in LEG_FIELDS if k in leg}
+    if leg.get("round_histogram") is not None:
+        got["round_histogram"] = round_histogram(res).tolist()
+        want["round_histogram"] = leg["round_histogram"]
+    diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if diff:
+        fail(f"{label} differs from its record: {diff}")
+    say(f"[wide] {label}: {', '.join(f'{k} {got[k]}' for k in LEG_FIELDS if k in want)}"
+        f"{' and the round histogram' if 'round_histogram' in want else ''} equal the record")
+
+
+def wide_kernels(paths) -> list:
+    """The ``{"kernels": [...]}`` entries of the wide kernel's libraries,
+    each from its timed cell of phase 9 (its launches from that cell's run)."""
+    cells = {"fused_round_committee_r0": "committee_point(131072)",
+             "fused_round_committee_r1": "committee_point(1024)",
+             "fused_round_committee_r4": "committee n=4096 (r19 shape)",
+             "fused_round_urn3_r1": "config4 urn3",
+             "fused_round_urn3_r4": "config5 n=2048 urn3",
+             "fused_round_urn2_r4": "config5 n=2048 urn2"}
+    by_label = {p["config"]: p for p in paths}
+    out = []
+    for lib, label in cells.items():
+        p = by_label[label]
+        out.append({
+            "name": lib, "route": "cuda",
+            "source": f"byzantinerandomizedconsensus_tpu_torch/csrc/{lib}.cu",
+            "replaces": "byzantinerandomizedconsensus_tpu/ops/pallas_round.py:268",
+            "path": label, "launches": p["launches"], "max_abs_err": p["max_abs_err"],
+            "ms": p["ms"], "wrapper_ms": p["wrapper_ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"], "library_ms": None,
+        })
+    return out
 
 
 def main() -> int:
@@ -976,10 +1286,19 @@ def main() -> int:
     took = _build.build()
     say(f"[build] {len(took)} kernel(s) built in {time.perf_counter() - t0:.1f} s: {took}")
     for k in _build.KERNELS:
-        if k != "fused_round":
+        if k not in _build.FUSED_LIBRARIES:
             say(f"[build] {k}: {ptxas_summary(k)}")
     for inst, regs in fused_ptxas().items():
         say(f"[build] fused_round {inst}: {regs}")
+    say(f"[build] fused_round (bracha, none, none), config4's instantiation: "
+        f"{config4_sass_count()} SASS instructions")
+    for lib in _build.FUSED_LIBRARIES[1:]:
+        regs = fused_ptxas(lib)
+        counts = [int(re.search(r"Used (\d+) registers", r).group(1)) for r in regs.values()]
+        spills = [int(m) for r in regs.values()
+                  for m in re.findall(r"(\d+) bytes spill stores", r)]
+        say(f"[build] {lib}: {len(regs)} instantiations, {min(counts)}-{max(counts)} "
+            f"registers, spill stores up to {max(spills, default=0)} bytes")
 
     # Phase 3: kernel against plain on a grid of small configs.
     t0 = time.perf_counter()
@@ -1082,6 +1401,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels[0]["paths"] += fault_phase(dev, card)
     say(f"[faults] phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # Phase 9: urn3, committee and the packing laws v2/v3 through fused_round.
+    t0 = time.perf_counter()
+    wide_paths = wide_phase(dev, card)
+    kernels[0]["paths"] += wide_paths
+    kernels += wide_kernels(wide_paths)
+    say(f"[wide] phase 9 took {time.perf_counter() - t0:.1f} s")
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -1,5 +1,6 @@
 """The port's fused round kernel on a CUDA card against its plain torch
-version, under every §9 fault schedule. Each test needs a card, is marked
+version, under every §9 fault schedule, and on its urn3 and committee laws
+in each layout (n ≤ 1024, n ≤ 4096, past 4096). Each test needs a card, is marked
 ``cuda`` and skips by name without one; this file imports only the port,
 so it runs where JAX is not installed:
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
-from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, committee_point
 from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
 
 KINDS = ("none", "recover", "partition", "omission")
@@ -44,6 +45,35 @@ def test_backend_runs_config4_under_each_schedule_through_the_kernel(card, kind)
     res = get_backend("torch").run(cfg, inst_ids=list(range(512)))
     assert fused_round.launches == 1
     want = fused_round.run_chunk_plain(cfg, torch.arange(512, dtype=torch.int32,
+                                                         device=card))
+    assert res.rounds.tolist() == want[0].tolist()
+    assert res.decision.tolist() == want[1].tolist()
+
+
+LAW_CASES = [("urn3", 64, 21), ("urn3", 2048, 682), ("committee", 64, 12),
+             ("committee", 2048, 409), ("committee", 8192, 1638), ("urn2", 2048, 682)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law,n,f", LAW_CASES, ids=[f"{c[0]}-n{c[1]}" for c in LAW_CASES])
+def test_kernel_matches_plain_on_each_law_and_layout(card, law, n, f):
+    for adversary, kind in (("none", "none"), ("adaptive", "omission"),
+                            ("byzantine", "partition"), ("crash", "recover")):
+        cfg = SimConfig(protocol="bracha", n=n, f=f, instances=32, adversary=adversary,
+                        coin="shared", delivery=law, round_cap=12, faults=kind).validate()
+        ids = torch.arange(cfg.instances, dtype=torch.int32, device=card)
+        got = fused_round.run_chunk(cfg, ids)
+        want = fused_round.run_chunk_plain(cfg, ids)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cfg
+
+
+@pytest.mark.cuda
+def test_backend_runs_committee_point_past_v2_through_the_kernel(card):
+    cfg = committee_point(131_072, instances=16)
+    fused_round.launches = 0
+    res = get_backend("torch").run(cfg)
+    assert fused_round.launches == 1
+    want = fused_round.run_chunk_plain(cfg, torch.arange(16, dtype=torch.int32,
                                                          device=card))
     assert res.rounds.tolist() == want[0].tolist()
     assert res.decision.tolist() == want[1].tolist()

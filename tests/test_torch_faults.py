@@ -327,14 +327,20 @@ def test_plain_backend_runs_the_model_layers_surface(fields):
 
 
 @pytest.mark.parametrize("fields,named", [
-    (dict(delivery="urn3"), "delivery='urn3'"),
+    (dict(delivery="urn3", n=4097, f=1365), "n=4097"),
     (dict(protocol="benor", adversary="byzantine", f=3, delivery="keys"),
      "Ben-Or's Byzantine pairing"),
 ], ids=["urn3", "benor-byzantine-keys"])
 def test_plain_backend_refuses_the_rest_by_name(fields, named):
-    cfg = SimConfig(**{**dict(protocol="bracha", n=16, f=5, instances=4), **fields}).validate()
+    """urn3 runs on the plain path up to its law's ceiling, n = 4096; past it
+    (a config validate refuses too) and under Ben-Or's Byzantine pairing
+    with keys the plain backend refuses by name."""
+    cfg = SimConfig(**{**dict(protocol="bracha", n=16, f=5, instances=4), **fields})
     with pytest.raises(PlainUnsupported, match=named):
-        get_backend("torch", device="cpu").run(cfg)
+        get_backend("torch", device="cpu").check_supported(cfg)
+    if cfg.n <= 4096:
+        with pytest.raises(PlainUnsupported, match=named):
+            get_backend("torch", device="cpu").run(cfg.validate())
 
 
 def test_cli_runs_a_fault_schedule_on_the_cpu(capsys):

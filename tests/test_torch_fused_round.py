@@ -221,48 +221,55 @@ def test_plain_driver_counts_the_work_of_running_instances():
 
 UNSUPPORTED = [
     (dict(delivery="urn"), "delivery='urn'"),
-    (dict(delivery="urn3"), "delivery='urn3'"),
+    (dict(delivery="urn3", n=4097, f=1365), "delivery='urn3'"),
     (dict(delivery="keys"), "delivery='keys'"),
-    (dict(n=1025, f=341, instances=64), "n=1025"),
+    (dict(n=1025, f=341, instances=64, delivery="urn"), "n=1025"),
 ]
 
 
 @pytest.mark.parametrize("fields,named", UNSUPPORTED, ids=[u[1] for u in UNSUPPORTED])
 def test_unsupported_surface_raises_fused_unsupported_by_name(fields, named):
+    """The §4b urn law and the spec-§4 keys law at any n (they run on the
+    per-step kernels), and urn3 past its law's ceiling n = 4096 (a config
+    validate refuses too), are refused by name."""
     base = dict(protocol="bracha", n=16, f=5, instances=64, delivery="urn2")
-    cfg = SimConfig(**{**base, **fields}).validate()
+    cfg = SimConfig(**{**base, **fields})
     calls = [lambda: fused_round.check_fused_supported(cfg),
              lambda: fused_round.run_chunk_plain(cfg, torch.zeros(1, dtype=torch.int32))]
-    if cfg.delivery == "urn3":
-        # Outside the model layer's surface too: the plain backend refuses it.
-        with pytest.raises(PlainUnsupported, match="delivery='urn3'"):
-            TorchBackend(device="cpu").run(cfg)
+    if cfg.n > 4096:
+        with pytest.raises(ValueError, match="full-mesh ceiling"):
+            cfg.validate()
+        with pytest.raises(PlainUnsupported, match="n=4097"):
+            TorchBackend(device="cpu").check_supported(cfg)
     else:
-        # The plain backend runs the model layer's surface: keys, urn and
-        # urn2, n <= 4096.
-        assert len(TorchBackend(device="cpu").run(cfg, inst_ids=[0]).rounds) == 1
+        # The plain backend runs the model layer's surface: keys, urn, urn2,
+        # urn3 and committee.
+        assert len(TorchBackend(device="cpu").run(cfg.validate(), inst_ids=[0]).rounds) == 1
     for call in calls:
         with pytest.raises(FusedUnsupported) as e:
             call()
         assert named in str(e.value)
-        assert ("surface is protocol in ('benor', 'bracha'), delivery in ('urn2',), "
-                "adversary in ('none', 'crash', 'byzantine', 'adaptive', 'adaptive_min')"
-                in str(e.value))
+        assert ("surface is protocol in ('benor', 'bracha'), delivery in ('urn2', 'urn3', "
+                "'committee'), adversary in ('none', 'crash', 'byzantine', 'adaptive', "
+                "'adaptive_min')" in str(e.value))
 
 
 @pytest.mark.parametrize("protocol", ["benor", "bracha"])
 def test_every_static_adversary_is_on_the_surface(protocol):
     """Both protocols under every static adversary pass the gate, with every
-    §9 fault schedule; the same configs under another delivery law or above
-    n=1024 are refused by name."""
+    §9 fault schedule, under urn2, urn3 and committee and past n=1024; the
+    same configs under the §4b urn law are refused by name at any n."""
     for adversary in fused_round.SUPPORTED["adversary"]:
         cfg = SimConfig(protocol=protocol, n=16, f=3, instances=64, adversary=adversary,
                         delivery="urn2").validate()
         fused_round.check_fused_supported(cfg)
         for kind in ("recover", "partition", "omission"):
             fused_round.check_fused_supported(dataclasses.replace(cfg, faults=kind))
-        for other, named in ((dict(delivery="urn3"), "delivery='urn3'"),
-                             (dict(n=1025, f=204), "n=1025")):
+        for law in ("urn3", "committee"):
+            fused_round.check_fused_supported(dataclasses.replace(cfg, delivery=law))
+        fused_round.check_fused_supported(dataclasses.replace(cfg, n=1025, f=204))
+        for other, named in ((dict(delivery="urn"), "delivery='urn'"),
+                             (dict(n=1025, f=204, delivery="urn"), "n=1025")):
             with pytest.raises(FusedUnsupported, match=named):
                 fused_round.check_fused_supported(dataclasses.replace(cfg, **other))
 

@@ -52,4 +52,5 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert '"decision_histogram"' in lines[0]
-    assert "byzantinerandomizedconsensus_tpu_torch.ops.fused_round" in lines[-1]
+    for module in ("ops.fused_round", "ops.urn3", "ops.committee", "models.committee"):
+        assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]

@@ -19,11 +19,13 @@ SEEDS = [0, 1, 0xDEADBEEF12345678]
 def _limits(pack):
     if pack == 1:
         return ref_prf.MAX_INSTANCES, ref_prf.MAX_ROUNDS, ref_prf.V1_MAX_N
+    if pack == 3:
+        return ref_prf.V3_MAX_INSTANCES, ref_prf.V3_MAX_ROUNDS, ref_prf.V3_MAX_N
     return ref_prf.V2_MAX_INSTANCES, ref_prf.V2_MAX_ROUNDS, ref_prf.V2_MAX_N
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("pack", [1, 2])
+@pytest.mark.parametrize("pack", [1, 2, 3])
 def test_prf_u32_matches_reference_on_random_coordinates(pack, seed):
     rng = np.random.default_rng(100 * pack + SEEDS.index(seed))
     max_inst, max_rnd, max_n = _limits(pack)
@@ -86,8 +88,10 @@ def test_seed_key_matches_reference(seed):
 
 
 def test_pack_v3_raises_by_name():
-    with pytest.raises(NotImplementedError, match="v3"):
-        prf.prf_u32(0, 1, 0, 0, 5000, 0, prf.COMMITTEE, pack=3)
+    """Packing law v3 draws the reference's words (it no longer raises: the
+    committee family runs it); an unknown law still raises by name."""
+    assert int(prf.prf_u32(0, 1, 0, 0, 5000, 0, prf.COMMITTEE, pack=3)) == \
+        int(ref_prf.prf_u32(0, 1, 0, 0, 5000, 0, prf.COMMITTEE, xp=np, pack=3))
     with pytest.raises(ValueError, match="unknown packing version"):
         prf.prf_u32(0, 1, 0, 0, 1, 0, prf.URN2, pack=4)
 
@@ -154,8 +158,10 @@ def test_prf_sender_matches_reference(pack):
         np.testing.assert_array_equal(
             got.numpy(), prf.prf_u32(9, torch.as_tensor(inst), rnd, 2, tag,
                                      torch.as_tensor(send), prf.BYZ_VALUE, pack=pack).numpy())
-    with pytest.raises(NotImplementedError, match="v3"):
-        prf.prf_sender(0, 1, 0, 0, 0, 5000, prf.BYZ_VALUE, pack=3)
+    # Under v3 the sender moves to the wide recv field.
+    assert int(prf.prf_sender(0, 1, 0, 0, 0, 5000, prf.BYZ_VALUE, pack=3)) == \
+        int(ref_prf.prf_sender(0, 1, 0, 0, 0, 5000, prf.BYZ_VALUE, xp=np, pack=3)) == \
+        int(prf.prf_u32(0, 1, 0, 0, 5000, 0, prf.BYZ_VALUE, pack=3))
 
 
 @pytest.mark.parametrize("fields", [
@@ -177,3 +183,21 @@ def test_validate_accepts_the_shipped_and_golden_configs(fields):
     including the Protocol A (n > 2f) and B (n > 5f) bounds at their edge."""
     assert config.SimConfig(**fields).validate() == config.SimConfig(**fields)
     ref_config.SimConfig(**fields).validate()
+
+
+def test_prf_sender_v3_swaps_fields_as_the_reference():
+    """Under packing law v3 the sender-addressed draw puts the replica in
+    the wide recv field and the tag in send, as the reference does."""
+    rng = np.random.default_rng(33)
+    inst = rng.integers(0, prf.V3_MAX_INSTANCES, (8, 1))
+    send = rng.integers(0, prf.V3_MAX_N, (1, 64))
+    for tag in (0, 1):
+        rnd = int(rng.integers(0, prf.V3_MAX_ROUNDS))
+        want = ref_prf.prf_sender(9, inst.astype(np.uint32), rnd, 1, tag,
+                                  send.astype(np.uint32), prf.BYZ_VALUE, xp=np, pack=3)
+        got = prf.prf_sender(9, torch.as_tensor(inst), rnd, 1, tag, torch.as_tensor(send),
+                             prf.BYZ_VALUE, pack=3)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+        np.testing.assert_array_equal(
+            got.numpy(), prf.prf_u32(9, torch.as_tensor(inst), rnd, 1, torch.as_tensor(send),
+                                     tag, prf.BYZ_VALUE, pack=3).numpy())
