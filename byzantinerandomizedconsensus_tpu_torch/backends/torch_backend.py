@@ -4,20 +4,22 @@ kernels, or anywhere through the plain torch round driver.
 Three kernels, chosen per backend:
 
 - ``"fused"`` launches the fused round kernel once per chunk: the whole
-  round loop (deliveries urn2, urn3 and committee; both protocols, every
-  static adversary, every §9 fault schedule, n up to each law's ceiling);
+  round loop (deliveries urn, urn2, urn3 and committee; both protocols,
+  every static adversary, every §9 fault schedule, n up to each law's
+  ceiling);
 - ``"step"`` runs the per-step round driver (:func:`models.driver.run_chunk`)
   with a CUDA kernel as each broadcast step's delivery: ``csrc/keys_step.cu``
-  under ``delivery="keys"``, ``csrc/urn_step.cu`` under ``delivery="urn"``;
+  under ``delivery="keys"``, ``csrc/urn_step.cu`` under ``delivery="urn"``
+  (both protocols, every static adversary, n ≤ 4096);
 - ``"plain"`` runs the same driver with each delivery law's plain torch
   version, on the model layer's own surface (:data:`PLAIN_SUPPORTED`).
 
 The device is CUDA unless the caller asks for the CPU; with no card present
 and the CPU not asked for, construction raises. The CPU runs ``"plain"``
 only. With no kernel named, CUDA picks ``"fused"`` for every law of its
-surface and ``"step"`` for the per-step laws (keys, urn); the per-step
-kernels have no §9 fault channel, so a fault config under keys or urn raises
-by name and runs on ``"plain"``.
+surface (urn among them) and ``"step"`` for keys; the per-step kernels have
+no §9 fault channel, so a fault config under keys raises by name and runs
+on ``"plain"`` (under urn it runs on ``"fused"``).
 """
 
 from __future__ import annotations
@@ -62,21 +64,18 @@ class PlainUnsupported(RuntimeError):
 
 def check_plain_supported(cfg) -> None:
     """Reject configs the model layer does not compute, with one message
-    naming its surface: Ben-Or's Byzantine pairing under the keys law needs
-    the per-receiver equivocation matrix, which is not ported."""
+    naming its surface."""
     problems = [f"{field}={getattr(cfg, field)!r}"
                 for field, allowed in PLAIN_SUPPORTED.items()
                 if getattr(cfg, field) not in allowed]
     if cfg.n > PLAIN_MAX_N.get(cfg.delivery, prf.V2_MAX_N):
         problems.append(f"n={cfg.n}")
-    if (cfg.protocol, cfg.adversary, cfg.delivery) == ("benor", "byzantine", "keys"):
-        problems.append("adversary='byzantine' with protocol='benor' under delivery='keys'")
     if problems:
         surface = ", ".join(f"{k} in {v}" for k, v in PLAIN_SUPPORTED.items())
         raise PlainUnsupported(
             f"kernel='plain' does not support {', '.join(problems)}; its "
             f"surface is {surface}, n <= {prf.V2_MAX_N} (committee: n <= "
-            f"{prf.V3_MAX_N}), except Ben-Or's Byzantine pairing under keys")
+            f"{prf.V3_MAX_N})")
 
 
 class TorchBackend(SimulatorBackend):
@@ -101,8 +100,7 @@ class TorchBackend(SimulatorBackend):
 
     def kernel_for(self, cfg: SimConfig) -> str:
         """The kernel a run of ``cfg`` takes: the one asked for, else
-        ``"fused"`` for the laws of its surface and ``"step"`` for the
-        per-step laws."""
+        ``"fused"`` for the laws of its surface and ``"step"`` for keys."""
         if self.kernel is not None:
             return self.kernel
         return "fused" if cfg.delivery in fused_round.SUPPORTED["delivery"] else "step"
@@ -144,9 +142,9 @@ class TorchBackend(SimulatorBackend):
         if self.kernel_for(cfg) == "plain":
             return
         if self.kernel_for(cfg) == "fused":
-            _build.load("fused_round")
+            _build.load(fused_round.library(cfg))
         else:
-            _build.load(_STEP_KERNELS[cfg.delivery][0])
+            _build.load(_step.library(_STEP_KERNELS[cfg.delivery][0], cfg))
 
     def run(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None) -> SimResult:
         cfg = cfg.validate()

@@ -218,9 +218,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--instances", type=int, default=None,
                      help="run only the first N instances of the config")
     run.add_argument("--delivery", choices=DELIVERY_KINDS, default=None,
-                     help="override the config's delivery law: urn2, urn3 and "
-                          "committee run on the fused kernel, keys and urn on the "
-                          "per-step kernels")
+                     help="override the config's delivery law: urn, urn2, urn3 "
+                          "and committee run on the fused kernel, keys on the "
+                          "per-step kernel (urn too with --kernel step)")
     run.add_argument("--adversary", default=None,
                      help="override the config's adversary")
     run.add_argument("--faults", choices=FAULT_KINDS, default=None,
@@ -228,14 +228,15 @@ def build_parser() -> argparse.ArgumentParser:
                           "recover (crash-recovery windows) | partition (an "
                           "epoch isolating part of the fault-prone set) | "
                           "omission (per-round bursts); on the card through "
-                          "the fused kernel under urn2, urn3 and committee, else "
-                          "with --kernel plain")
+                          "the fused kernel under urn, urn2, urn3 and committee, "
+                          "else with --kernel plain")
     run.add_argument("--device", default="cuda",
                      help="cuda (default; raises with no card) or cpu")
     run.add_argument("--kernel", choices=KERNELS, default=None,
                      help="fused (the round-loop kernel; default on cuda for "
-                          "urn2, urn3 and committee), step (the per-step kernels; "
-                          "default on cuda for keys and urn) or plain (torch ops)")
+                          "urn, urn2, urn3 and committee), step (the per-step "
+                          "kernels, keys and urn; default on cuda for keys) or "
+                          "plain (torch ops)")
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
     run.set_defaults(fn=cmd_run)

@@ -4,9 +4,12 @@
 // Replaces, beside fused_round.cu, the TPU kernel
 // byzantinerandomizedconsensus_tpu/ops/pallas_round.py (run_chunk,
 // pallas_call at :268, body _make_kernel.kernel at :146) on the rest of its
-// surface: delivery urn2 (spec §4b-v2) for 1024 < n <= 4096, urn3 (spec §4c)
-// for n <= 4096 and committee (spec §10) for n <= 2^20, both protocols, every
-// static adversary, every §9 fault schedule, every init law and both coins.
+// surface: delivery urn (spec §4b) and urn3 (spec §4c) for n <= 4096, urn2
+// (spec §4b-v2) for 1024 < n <= 4096 and committee (spec §10) for n <= 2^20,
+// both protocols, every static adversary, every §9 fault schedule, every
+// init law and both coins. The §4b draws are urn_step.cuh's urn_counts, the
+// per-step urn kernel's own function, so the two kernels share one
+// implementation of the law.
 //
 // Layout. One CTA per instance, so that every per-instance count stays a
 // reduction inside the block. Thread `tid` owns replicas v = tid + k·blockDim
@@ -46,7 +49,9 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
 #include "fused_round.cuh"
+#include "urn_step.cuh"
 
 // The two per-replica functions of a step are called, not inlined, in the
 // kernel: each is compiled once per instantiation instead of once per
@@ -67,6 +72,7 @@ namespace fused {
 constexpr int kLawUrn2 = 0;
 constexpr int kLawUrn3 = 1;
 constexpr int kLawCommittee = 2;
+constexpr int kLawUrn = 3;
 }  // namespace fused
 
 // The operand planes of one chunk, null where the config has none: faulty
@@ -262,6 +268,14 @@ struct Wide {
     } else if constexpr (LAW == fused::kLawUrn3) {
       urn3_counts<PACK, kAdaptive>(p.k0, p.k1, inst, rnd, t, v, own, s.live, M0, M1, M2,
                                    p.n, p.f, pref, &c0, &c1);
+    } else if constexpr (LAW == fused::kLawUrn) {
+      // The per-step urn kernel's draws; its strata follow the adversary
+      // code (pref_of: the receiver's class, or the minority mn).
+      constexpr int kCode = ADV == fused::kAdaptive      ? kAdvAdaptive
+                            : ADV == fused::kAdaptiveMin ? kAdvAdaptiveMin
+                                                         : kAdvNone;
+      const StepParams sp{p.k0, p.k1, p.n, p.f, rnd, t, kCode};
+      urn_counts<PACK>(sp, inst, v, own, s.live, M0, M1, M2, mn, &c0, &c1);
     } else {
       committee_counts<PACK, kAdaptive>(p.k0, p.k1, inst, rnd, t, v, own, s.live, s.member,
                                         M0, M1, M2, p.kq, pref, &c0, &c1);
@@ -291,39 +305,6 @@ BRC_HD Params quorum(const Params& p) {
 #include <cuda_runtime.h>
 
 namespace brc {
-
-// Sums each of K per-thread counters over the block, in place: a warp
-// shuffle tree, one partial per warp in shared memory, warp 0 sums the
-// partials. blockDim is a multiple of 32. Two barriers; the buffers are
-// reused safely by the next call because every thread passes the second
-// barrier before any thread writes them again.
-template <int K>
-__device__ __forceinline__ void block_sum(int (&x)[K]) {
-  __shared__ int part[32][K];
-  __shared__ int total[K];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    int s = x[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) part[warp][i] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      int s = lane < nwarps ? part[lane][i] : 0;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) total[i] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < K; ++i) x[i] = total[i];
-}
 
 template <int PROTO, int ADV, int FAULT, int LAW, int R>
 __global__ void __launch_bounds__(1024)

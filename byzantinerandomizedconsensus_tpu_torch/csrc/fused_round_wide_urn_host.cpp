@@ -1,5 +1,5 @@
 // Host build of the wide fused round kernel's loop under delivery urn2
-// (packing law v2) and urn3 (v1, v2): see fused_round_wide_host.inc.
+// (packing law v2), urn3 and urn (v1, v2): see fused_round_wide_host.inc.
 #include "fused_round_wide_host.inc"
 
 #define BRC_RUN(LAW, PACK)                                                                 \
@@ -9,4 +9,5 @@
     return 0;                                                                              \
   }
 
-BRC_HOST_WIDE_ENTRY(BRC_RUN(kLawUrn2, 2) BRC_RUN(kLawUrn3, 1) BRC_RUN(kLawUrn3, 2))
+BRC_HOST_WIDE_ENTRY(BRC_RUN(kLawUrn2, 2) BRC_RUN(kLawUrn3, 1) BRC_RUN(kLawUrn3, 2)
+                        BRC_RUN(kLawUrn, 1) BRC_RUN(kLawUrn, 2))

@@ -7,8 +7,10 @@
 // instance the minority and the class tables, per receiver row the plan, the
 // hashing of the crossing class only, the histogram select and the exact
 // finish (host_select), with each warp reduction, scan and ballot written as
-// a loop over the lanes or the list in order. brc_deliver_row drives the
-// same row work on a row given as top fields.
+// a loop over the lanes or the list in order; under packing law v2 (n >
+// 1024) with the v2 key fields and bin words, under Ben-Or's Byzantine
+// pairing with its per-row values. brc_deliver_row drives the same row work
+// on a row given as top fields (v1).
 #include <stddef.h>
 #include <stdint.h>
 
@@ -21,26 +23,29 @@ namespace {
 // Steps 3 and 4 of the kernel on a row's crossing-class list of m entries:
 // adds the selected entries' value-0 and value-1 counts to *c0, *c1, and
 // when sel is not null marks each entry selected or not.
+template <int PACK = 1>
 void host_select(const uint32_t* list, int m, int kp, int* c0, int* c1,
                  uint8_t* sel) {
-  uint32_t hist[brc::kBins] = {};
-  for (int i = 0; i < m; ++i) hist[brc::entry_bin(list[i])] += brc::bin_word(list[i]);
+  using Bins = brc::BinLaw<PACK>;
+  using Word = typename Bins::Word;
+  Word hist[brc::kBins] = {};
+  for (int i = 0; i < m; ++i) hist[brc::entry_bin(list[i])] += Bins::word(list[i]);
   // The warp scan: the first lane whose slice holds the crossing bin.
-  uint32_t before = 0u, below = 0u, word = 0u;
+  Word before = 0u, below = 0u, word = 0u;
   uint32_t bstar = 0u;
   for (int lane = 0; lane < 32; ++lane) {
-    const uint32_t* w = hist + lane * brc::kBinsPerLane;
-    const int j = brc::crossing_bin(w, before, kp, &below, &word);
+    const Word* w = hist + lane * brc::kBinsPerLane;
+    const int j = brc::crossing_bin<PACK>(w, before, kp, &below, &word);
     if (j < brc::kBinsPerLane) {
       bstar = (uint32_t)(lane * brc::kBinsPerLane + j);
       break;
     }
     for (int q = 0; q < brc::kBinsPerLane; ++q) before += w[q];
   }
-  *c0 += brc::bin_v0(below);
-  *c1 += brc::bin_v1(below);
-  const int kpp = kp - brc::bin_count(below);
-  const int cbin = brc::bin_count(word);
+  *c0 += Bins::v0(below);
+  *c1 += Bins::v1(below);
+  const int kpp = kp - Bins::count(below);
+  const int cbin = Bins::count(word);
   if (sel)
     for (int i = 0; i < m; ++i) sel[i] = brc::entry_bin(list[i]) < bstar ? 1 : 0;
   if (cbin <= brc::kFinishSlots) {
@@ -86,7 +91,7 @@ void host_select(const uint32_t* list, int m, int kp, int* c0, int* c1,
 // the own entry under cross 0; then host_select. Returns the PRF words made
 // (the members hashed); *c0, *c1 end as the row's counts, and deliv (when
 // not null) as the delivered flag of every sender.
-template <typename Entry>
+template <int PACK = 1, typename Entry>
 int host_row(const brc::RowPlan& plan, const uint32_t* cls, int n, uint32_t recv,
              Entry entry, std::vector<uint32_t>& list, int* c0, int* c1,
              uint8_t* deliv) {
@@ -109,7 +114,7 @@ int host_row(const brc::RowPlan& plan, const uint32_t* cls, int n, uint32_t recv
     who.push_back((int)recv);
   }
   std::vector<uint8_t> sel(list.size());
-  host_select(list.data(), (int)list.size(), plan.kp, c0, c1, sel.data());
+  host_select<PACK>(list.data(), (int)list.size(), plan.kp, c0, c1, sel.data());
   if (deliv)
     for (size_t i = 0; i < list.size(); ++i)
       if ((uint32_t)who[i] != recv) deliv[who[i]] = sel[i];
@@ -125,7 +130,15 @@ uint32_t brc_combined_key(uint32_t k0, uint32_t k1, int n, int rnd, int step,
                           uint32_t send, uint32_t value, int silent,
                           uint32_t minority) {
   const brc::StepParams p{k0, k1, n, 0, (uint32_t)rnd, (uint32_t)step, adversary};
-  return brc::combined_key(p, inst, recv, send, value, silent != 0, minority);
+  if (n > 1024) return brc::combined_key<2>(p, inst, recv, send, value, silent != 0, minority);
+  return brc::combined_key<1>(p, inst, recv, send, value, silent != 0, minority);
+}
+
+uint32_t brc_equivocation_value(uint32_t k0, uint32_t k1, int n, int rnd, int step,
+                                uint32_t inst, uint32_t recv, uint32_t send) {
+  const brc::StepParams p{k0, k1, n, 0, (uint32_t)rnd, (uint32_t)step, brc::kAdvNone};
+  if (n > 1024) return brc::equivocation_value<2>(p, inst, recv, send);
+  return brc::equivocation_value<1>(p, inst, recv, send);
 }
 
 // The kernel's row on one row of n natural top fields (class(2) | prf(20) of
@@ -155,28 +168,35 @@ int brc_deliver_row(const uint32_t* top, const uint8_t* values, int n,
   return hashed;
 }
 
-// One step for B instances, as the kernel computes it. Returns the PRF words
-// computed, the crossing-class pairs of every row.
-long long brc_host_keys_step(const int32_t* inst_ids, const uint8_t* values,
-                             const uint8_t* silent, const uint8_t* faulty,
-                             int32_t* c0_out, int32_t* c1_out, int B, int n,
-                             int f, int rnd, int step, int adversary,
-                             uint32_t k0, uint32_t k1) {
-  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step, adversary};
+}  // extern "C"
+
+namespace {
+
+// One step for B instances under law PACK, as the kernel computes it (EQUIV:
+// Ben-Or's Byzantine pairing). Returns the PRF words computed: the
+// crossing-class pairs of every row, and under EQUIV the values of the
+// faulty senders each row hashes.
+template <int PACK, bool EQUIV>
+long long host_keys_step(const int32_t* inst_ids, const uint8_t* values,
+                         const uint8_t* silent, const uint8_t* faulty, int32_t* c0_out,
+                         int32_t* c1_out, int B, const brc::StepParams& p) {
+  const int n = p.n, f = p.f;
   const int tables = brc::table_count(p);
   std::vector<uint32_t> cls(2 * (size_t)n), list;
+  std::vector<uint8_t> val(n);
   long long hashed = 0;
   for (int b = 0; b < B; ++b) {
-    const uint8_t* val = values + (size_t)b * n;
+    const uint8_t* wire = values + (size_t)b * n;
     const uint8_t* sil = silent + (size_t)b * n;
     const uint8_t* fa = faulty + (size_t)b * n;
     const uint32_t inst = (uint32_t)inst_ids[b];
+    for (int s = 0; s < n; ++s) val[s] = EQUIV && fa[s] ? (uint8_t)brc::kEquivocates : wire[s];
     int h0 = 0, h1 = 0;
-    if (adversary == brc::kAdvAdaptiveMin) {
+    if (p.adversary == brc::kAdvAdaptiveMin) {
       for (int s = 0; s < n; ++s) {
         if (!fa[s]) {
-          h0 += val[s] == 0 ? 1 : 0;
-          h1 += val[s] == 1 ? 1 : 0;
+          h0 += wire[s] == 0 ? 1 : 0;
+          h1 += wire[s] == 1 ? 1 : 0;
         }
       }
     }
@@ -190,23 +210,67 @@ long long brc_host_keys_step(const int32_t* inst_ids, const uint8_t* values,
       }
     }
     for (int recv = 0; recv < n; ++recv) {
-      const int t = brc::table_of(p, (uint32_t)recv);
+      const uint32_t r = (uint32_t)recv;
+      const int t = brc::table_of(p, r);
       const uint32_t* tc = cls.data() + (size_t)t * n;
       const brc::RowPlan plan = brc::row_plan(tab[t], val[recv], tc[recv], n - f);
-      int c0, c1;
-      hashed += host_row(
-          plan, tc, n, (uint32_t)recv,
+      auto value = [&](uint32_t s) -> uint32_t {
+        if (EQUIV && val[s] == brc::kEquivocates) {
+          ++hashed;
+          return brc::equivocation_value<PACK>(p, inst, r, s);
+        }
+        return val[s];
+      };
+      int c0, c1, e0 = 0, e1 = 0;
+      if (EQUIV) {
+        if (val[recv] == brc::kEquivocates) {
+          const uint32_t x = value(r);
+          e0 += x == 0u ? 1 : 0;
+          e1 += x == 1u ? 1 : 0;
+        }
+        for (int s = 0; s < n; ++s) {
+          if (s == recv || (int)tc[s] >= plan.cross || tc[s] > 1u) continue;
+          if (val[s] != brc::kEquivocates) continue;
+          const uint32_t y = value((uint32_t)s);
+          e0 += y == 0u ? 1 : 0;
+          e1 += y == 1u ? 1 : 0;
+        }
+      }
+      hashed += host_row<PACK>(
+          plan, tc, n, r,
           [&](uint32_t s) {
-            return brc::list_entry(
-                val[s], brc::prf_u32(k0, k1, inst, p.rnd, p.step, (uint32_t)recv, s, brc::kSched),
-                s);
+            const uint32_t v = value(s);
+            return brc::list_entry<PACK>(
+                v, brc::prf<PACK>(p.k0, p.k1, inst, p.rnd, p.step, r, s, brc::kSched), s);
           },
           list, &c0, &c1, nullptr);
-      c0_out[(size_t)b * n + recv] = c0;
-      c1_out[(size_t)b * n + recv] = c1;
+      c0_out[(size_t)b * n + recv] = c0 + e0;
+      c1_out[(size_t)b * n + recv] = c1 + e1;
     }
   }
   return hashed;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One step for B instances, as the kernel computes it, under the kernel's
+// adversary codes (kAdvTwoFaced: Ben-Or's Byzantine pairing) and the
+// packing law of n. Returns the PRF words computed (host_keys_step).
+long long brc_host_keys_step(const int32_t* inst_ids, const uint8_t* values,
+                             const uint8_t* silent, const uint8_t* faulty,
+                             int32_t* c0_out, int32_t* c1_out, int B, int n,
+                             int f, int rnd, int step, int adversary,
+                             uint32_t k0, uint32_t k1) {
+  const bool equiv = adversary == brc::kAdvTwoFaced;
+  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
+                          equiv ? brc::kAdvNone : adversary};
+  if (n <= 1024)
+    return equiv ? host_keys_step<1, true>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p)
+                 : host_keys_step<1, false>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p);
+  return equiv ? host_keys_step<2, true>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p)
+               : host_keys_step<2, false>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p);
 }
 
 }  // extern "C"

@@ -3,8 +3,12 @@
 //
 // Replaces the TPU kernel byzantinerandomizedconsensus_tpu/ops/pallas_urn.py
 // (step_counts, pallas_call at :291, body _urn_kernel at :60) on the surface
-// bracha, adversary none / adaptive / adaptive_min, faults none, n <= 1024
-// (packing law v1).
+// benor and bracha, every static adversary, faults none, n <= 4096 (packing
+// laws v1 and v2). Crash silences and Bracha's Byzantine pairing reach it
+// through the silent and values planes; Ben-Or's two-faced class rows (the
+// reference's v0c and v1c, pallas_urn.py:193-199) are drawn here from the
+// faulty plane, two PRF words per faulty sender, as the fused kernel draws
+// them, rather than built by the wrapper.
 //
 // Layout. One CTA per instance, one thread per receiver (blockDim = n rounded
 // up to a warp), as in fused_round.cu. The live class totals, and under
@@ -12,7 +16,12 @@
 // __syncthreads_count reductions. Each thread then runs its own drop draws
 // (urn_step.cuh::urn_counts). Every receiver of an instance sees the same
 // totals less its own message, so D is the same within a CTA up to one and a
-// warp does not diverge on it. Only the (B, n) counts are written.
+// warp does not diverge on it. Only the (B, n) counts are written. Past
+// n = 1024 (law v2), and under Ben-Or's two-faced pairing at any n,
+// urn_step_wide.cu's kernel gives each thread up to R = 4 receivers (one
+// under v1), and the totals, of each receiver class under the pairing, are
+// block_sum reductions; the class totals are the same for every receiver of
+// a class, so each thread draws for its receivers in turn.
 //
 // Bound. Integer operations. A drop draw is the LCG multiply-add, the xor-shift,
 // the draw's index scaled by 2^22 (a shift and one full-rate IMAD), and one
@@ -70,7 +79,9 @@ urn_step_kernel(const int32_t* __restrict__ inst_ids,
 
 // Launch one step for B instances on `stream`. Pointers are device pointers:
 // inst_ids (B,) int32; values, silent, faulty (B, n) uint8; c0, c1 (B, n)
-// int32. Returns cudaGetLastError() after the launch (0 on success).
+// int32. Packing law v1 (n <= 1024) and any adversary code of keys_step.cuh
+// but kAdvTwoFaced, which urn_step_wide.cu runs. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int brc_urn_step_launch(const int32_t* inst_ids,
                                    const uint8_t* values, const uint8_t* silent,
                                    const uint8_t* faulty, int32_t* c0,
@@ -79,6 +90,8 @@ extern "C" int brc_urn_step_launch(const int32_t* inst_ids,
                                    uint32_t k1, void* stream) {
   if (B <= 0) return 0;
   if (n < 1 || n > 1024 || f < 0 || f >= n) return (int)cudaErrorInvalidValue;
+  if (adversary < brc::kAdvNone || adversary >= brc::kAdvTwoFaced)
+    return (int)cudaErrorInvalidValue;
   const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step, adversary};
   const int threads = (n + 31) / 32 * 32;
   urn_step_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(

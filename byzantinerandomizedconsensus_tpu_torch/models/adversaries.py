@@ -11,10 +11,12 @@ and a per-step injection mapping honest outgoing values to
 - ``silent``: (B, n) bool sender silences;
 - ``bias``:   (B, 1, n) or (B, R, n) scheduling-bias bits (spec §4 bit 30).
 
-Ben-Or's Byzantine pairing under the keys law needs the reference's
-(B, n, n) per-receiver equivocation matrix, which is not ported: it raises
-by name. Under a count-level law the urn recomputes the two-faced class
-values itself (``ops/urn.py::byz_class_values``).
+Ben-Or's Byzantine pairing equivocates per receiver. Its inject passes the
+honest values through, and each delivery law draws the equivocation itself:
+the keys law the per-(receiver, sender) values of
+:func:`equivocation_values`, a bounded chunk of instances at a time
+(``ops/keys_step.py::step_counts_plain``), the urn the two-faced class
+values (``ops/urn.py::byz_class_values``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,27 @@ def bracha_byzantine_code(cfg, seed, inst_ids: torch.Tensor, rnd, t) -> torch.Te
                           prf.BYZ_VALUE, pack=cfg.pack_version) & 3
 
 
+def two_faced(cfg) -> bool:
+    """True for Ben-Or's Byzantine pairing, whose faulty senders show each
+    receiver its own value (spec §6.3)."""
+    return cfg.adversary == "byzantine" and cfg.protocol != "bracha"
+
+
+def equivocation_values(cfg, seed, inst_ids: torch.Tensor, rnd, t,
+                        honest: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) uint8, axes (instance, recv, send): the wire value each
+    receiver sees from each sender under Ben-Or's Byzantine pairing (spec
+    §6.3). A faulty sender shows receiver ``recv`` the value
+    ``prf_u32(..., recv, send, BYZ_VALUE) % 3`` (2 is ⊥, a live message
+    that is not counted); the others their honest value."""
+    n, dev = cfg.n, honest.device
+    recv = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    send = torch.arange(n, dtype=torch.int64, device=dev)[None, None, :]
+    e = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None, None], rnd, t, recv, send,
+                    prf.BYZ_VALUE, pack=cfg.pack_version)
+    return torch.where(faulty[:, None, :], (e % 3).to(torch.uint8), honest[:, None, :])
+
+
 def scheduling_bias(cfg, values: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
     """The keys law's scheduling-bias bits (spec §4 bit 30) for one step's
     wire ``values``: all zero (B, 1, n) under ``none``; by receiver class
@@ -86,9 +109,10 @@ class AdversaryModel:
 
     def __init__(self, cfg):
         if cfg.adversary not in PORTED:
-            raise NotImplementedError(
-                f"adversary={cfg.adversary!r} is not ported yet; the port "
-                f"runs adversary in {PORTED}")
+            raise ValueError(
+                f"unknown adversary={cfg.adversary!r}; the port runs the static "
+                f"adversaries {PORTED} (the reference's superset lanes wait for "
+                f"its lane runner)")
         self.cfg = cfg
 
     def setup(self, seed, inst_ids: torch.Tensor) -> dict:
@@ -111,8 +135,9 @@ class AdversaryModel:
         Crashed replicas (faulty, from their crash round on) are silent.
         Under Bracha a Byzantine sender's reliable broadcast is silent or
         carries 0, 1 or its honest value (:func:`bracha_byzantine_code`);
-        under Ben-Or and a count-level law the honest values pass through,
-        because the urn recomputes the two-faced class values. Faulty
+        under Ben-Or the honest values pass through, because the delivery
+        law draws the equivocation (:func:`equivocation_values`,
+        ``ops/urn.py::byz_class_values``). Faulty
         replicas of the adaptive family push the observed minority. Under a
         count-level delivery law the urn derives its strata from the wire
         values, so the bias is all zero (B, 1, n); under the keys law it is
@@ -133,11 +158,6 @@ class AdversaryModel:
             silent = faulty & (b == 0)
             v = torch.where(b == 1, 0, torch.where(b == 2, 1, honest_values.to(torch.int64)))
             values = torch.where(faulty, v.to(torch.uint8), honest_values)
-        elif cfg.adversary == "byzantine" and not cfg.count_level:
-            raise NotImplementedError(
-                "adversary='byzantine' under protocol='benor' and delivery='keys' "
-                "needs the (B, n, n) per-receiver equivocation matrix (spec §6.3), "
-                "which is not ported yet; the count-level laws run it")
         elif cfg.adversary in ADAPTIVE:
             minority = observed_minority(honest_values, faulty)
             values = torch.where(faulty, minority[:, None], honest_values)

@@ -31,9 +31,13 @@ BUILD = PKG / "build"
 #: (fused_round_wide.cuh; ops/fused_round.py::library).
 FUSED_LIBRARIES = ("fused_round", "fused_round_urn2_r4", "fused_round_urn3_r1",
                    "fused_round_urn3_r4", "fused_round_committee_r1",
-                   "fused_round_committee_r4", "fused_round_committee_r0")
+                   "fused_round_committee_r4", "fused_round_committee_r0",
+                   "fused_round_urn_r1", "fused_round_urn_r4")
+#: The per-step kernels' libraries: each kernel's config-5 instantiation
+#: alone, and the rest of its surface (ops/_step.py::library).
+STEP_LIBRARIES = ("keys_step", "keys_step_wide", "urn_step", "urn_step_wide")
 #: The CUDA sources of the port, one library each.
-KERNELS = FUSED_LIBRARIES + ("keys_step", "urn_step")
+KERNELS = FUSED_LIBRARIES + STEP_LIBRARIES
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -25,10 +25,12 @@ the card).
 The kernel's surface: both protocols (benor, bracha), every static adversary
 (none, crash, byzantine, adaptive, adaptive_min), every §9 fault schedule
 (none, recover, partition, omission), every init law and both coins, under
-the deliveries urn2 and urn3 up to n = 4096 and committee up to n = 2^20:
-the reference kernel's surface but the §4b ``urn`` law, which runs on the
-per-step urn kernel. The host builds the static operands as the reference's
-kernel does (``pallas_round.py:244-265``), since they need the §3.2 sort:
+the deliveries urn, urn2 and urn3 up to n = 4096 and committee up to
+n = 2^20: the reference kernel's surface (``SUPPORTED_DELIVERIES``,
+``pallas_round.py:74``) but its superset lanes. The §4b draws are those of
+the per-step urn kernel (``csrc/urn_step.cuh::urn_counts``). The host
+builds the static operands as the reference's kernel does
+(``pallas_round.py:244-265``), since they need the §3.2 sort:
 :func:`adversary_planes`, a (B, n) faulty plane and, under crash, a (B, n)
 crash-round plane (none under adversary none); and :func:`fault_planes`, the
 schedule's planes from :func:`models.faults.setup_faults`, whose fault-prone
@@ -56,7 +58,7 @@ _PROTOCOL_CODES = {"benor": 0, "bracha": 1}
 _ADVERSARY_CODES = {"none": 0, "crash": 1, "byzantine": 2, "adaptive": 3,
                     "adaptive_min": 4}
 _FAULT_CODES = {"none": 0, "recover": 1, "partition": 2, "omission": 3}
-_LAW_CODES = {"urn2": 0, "urn3": 1, "committee": 2}
+_LAW_CODES = {"urn2": 0, "urn3": 1, "committee": 2, "urn": 3}
 
 SUPPORTED = {
     "protocol": tuple(_PROTOCOL_CODES),
@@ -68,10 +70,10 @@ SUPPORTED = {
 }
 #: The largest n of each delivery law: the full-mesh laws stop at packing
 #: law v2's edge, the committee family at v3's.
-MAX_N = {"urn2": prf.V2_MAX_N, "urn3": prf.V2_MAX_N, "committee": prf.V3_MAX_N}
-#: Where the laws the kernel does not run are run instead.
-ELSEWHERE = {"urn": "kernel='step' (csrc/urn_step.cu) or kernel='plain'",
-             "keys": "kernel='step' (csrc/keys_step.cu) or kernel='plain'"}
+MAX_N = {"urn2": prf.V2_MAX_N, "urn3": prf.V2_MAX_N, "committee": prf.V3_MAX_N,
+         "urn": prf.V2_MAX_N}
+#: Where the law the kernel does not run is run instead.
+ELSEWHERE = {"keys": "kernel='step' (csrc/keys_step.cu) or kernel='plain'"}
 
 _INIT_CODES = {"random": 0, "all0": 1, "all1": 2, "split": 3}
 _COIN_CODES = {"local": 0, "shared": 1}
@@ -249,7 +251,9 @@ def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
     PRF word), under urn3 ``urn3_words`` and under committee
     ``committee_draws`` (the PRF words of the law: a drop word per receiver
     with a drop, and under committee a membership word per replica and
-    step) with ``cheap_segments`` (the cheap law's segments), each over the
+    step) with ``cheap_segments`` (the cheap law's segments), under urn
+    ``urn_words`` (a drop word per receiver with a drop) and
+    ``urn_random_draws`` (the draws that need a random word), each over the
     receivers whose counts are read, and under omission ``fault_words`` (the
     burst gate's and the bits' PRF words) — the inputs of the kernel's bound.
     """

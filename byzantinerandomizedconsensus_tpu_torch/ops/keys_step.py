@@ -10,8 +10,10 @@ two (B, n) int32:
   (``csrc/keys_step.cu``): class counts per instance first, then one warp
   per receiver row hashes only the class in which the n − f threshold falls
   and finds the threshold by a histogram on the PRF's top bits and an exact
-  finish in its bin. It takes CUDA tensors; given CPU tensors it runs the
-  plain version, because there is no kernel to run there.
+  finish in its bin; under Ben-Or's Byzantine pairing each row also hashes
+  the values its faulty senders show it. It takes CUDA tensors; given CPU
+  tensors it runs the plain version, because there is no kernel to run
+  there.
 - :func:`step_counts_plain` is the keys law in torch ops
   (``ops/masks.py`` and ``ops/tally.py``), a bounded number of key triples
   at a time. It is also the round body's default keys delivery
@@ -27,12 +29,14 @@ from __future__ import annotations
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models.adversaries import scheduling_bias
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import (
+    equivocation_values, scheduling_bias, two_faced)
 from byzantinerandomizedconsensus_tpu_torch.models.faults import cross_silent
 from byzantinerandomizedconsensus_tpu_torch.ops import _step, masks, tally
 
 #: (instance, receiver, sender) key triples the plain version holds at once:
-#: about 100 bytes each across the int64 PRF temporaries, so 1.6 GB.
+#: about 100 bytes each across the int64 PRF temporaries (the keys, and under
+#: Ben-Or's Byzantine pairing the equivocation values), so 1.6 GB.
 PLAIN_PAIRS = 1 << 24
 
 #: Launches of the CUDA kernel since the count was last set to 0.
@@ -61,14 +65,20 @@ def step_counts(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
 
 def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
                       values: torch.Tensor, silent: torch.Tensor,
-                      faulty: torch.Tensor, bias=None, fside=None):
+                      faulty: torch.Tensor, bias=None, fside=None, stats=None):
     """The keys law in torch ops, at most :data:`PLAIN_PAIRS` key triples
     at a time. ``bias`` is the (B, 1, n) or (B, R, n) scheduling bias of
     ``inject``; ``None`` computes it chunk by chunk with
     :func:`models.adversaries.scheduling_bias`. ``fside`` is the round's
     (B, n) partition side plane (``models/faults.py::round_masks``); the
     cut it makes (``models/faults.py::cross_silent``) is built chunk by
-    chunk, and not at all in a round with nobody on side 1."""
+    chunk, and not at all in a round with nobody on side 1. Under Ben-Or's
+    Byzantine pairing ``values`` are the honest values, and each chunk's
+    per-receiver values come from
+    :func:`models.adversaries.equivocation_values`; ``stats``, when a dict,
+    then gains ``equivocation_words``, the (receiver, delivered faulty
+    sender) pairs, own message included, each one PRF word of the
+    kernel."""
     if fside is not None and not bool(fside.any()):
         fside = None
     per = max(1, PLAIN_PAIRS // (cfg.n * cfg.n))
@@ -80,5 +90,10 @@ def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
         x = None if fside is None else cross_silent(fside[lo:hi])
         mask = masks.delivery_mask(cfg, seed, inst_ids[lo:hi], rnd, step,
                                    silent[lo:hi], b, xsilent=x)
+        if two_faced(cfg):
+            v = equivocation_values(cfg, seed, inst_ids[lo:hi], rnd, step, v, faulty[lo:hi])
+            if stats is not None:
+                stats["equivocation_words"] = stats.get("equivocation_words", 0) + int(
+                    (mask & faulty[lo:hi, None, :]).sum())
         parts.append(tally.tally01(mask, v))
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from byzantinerandomizedconsensus_tpu_torch.models.adversaries import observed_minority
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import (
+    observed_minority, two_faced)
 from byzantinerandomizedconsensus_tpu_torch.ops import prf
 
 
@@ -58,7 +59,7 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
     live = ~silent
     h_lane = (torch.arange(cfg.n, device=values.device)
               >= (cfg.n_eff + 1) // 2)[None, :]
-    if cfg.adversary == "byzantine" and cfg.protocol != "bracha":
+    if two_faced(cfg):
         v0c, v1c = byz_class_values(cfg, seed, inst_ids, rnd, t, honest, faulty)
         own_val = torch.where(h_lane, v1c, v0c)
     else:
@@ -99,16 +100,27 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
     ``values`` (B, n) wire values, ``silent`` (B, n) bool (validation
     silences included), ``fside`` the §9 partition side plane or ``None``.
     Returns two (B, n) int32. ``stats``, when a dict,
-    gains ``urn_draws`` (B,) int64, the draws the law needs (the sum of D
-    over the receivers ``stats_lanes``, default all).
+    gains, each (B,) int64 over the receivers ``stats_lanes`` (default
+    all): ``urn_draws``, the draws the law needs (the sum of D);
+    ``urn_words``, the receivers with a drop, each one PRF word; and
+    ``urn_random_draws``, the draws that need a random word: D under one
+    stratum, min(D, B0) under two, B0 being the receiver's live biased
+    messages other than its own (the rest come from the preferred class
+    without a draw; ``csrc/urn_step.cuh::urn_counts``).
     All lanes step together to the batch maximum of D; a lane past its own D
     is masked, which leaves its counts as the reference's masked tail does.
     """
     own_val, m, st, L, D = lane_setup(cfg, values, silent, faulty, honest,
                                       seed, inst_ids, rnd, t, fside=fside)
     if stats is not None:
-        drawn = D if stats_lanes is None else D * stats_lanes
-        stats["urn_draws"] = stats.get("urn_draws", 0) + drawn.sum(dim=-1, dtype=torch.int64)
+        lanes = 1 if stats_lanes is None else stats_lanes
+        random = D
+        if st is not None:
+            b0 = sum(torch.where(x, c, 0) for x, c in zip(st, m))
+            random = torch.minimum(D, b0)
+        for key, per in (("urn_draws", D), ("urn_words", (D > 0).to(torch.int32)),
+                         ("urn_random_draws", random)):
+            stats[key] = stats.get(key, 0) + (per * lanes).sum(dim=-1, dtype=torch.int64)
     inst = inst_ids.to(torch.int64)[:, None]
     recv = torch.arange(cfg.n, dtype=torch.int64, device=values.device)[None, :]
     s = prf.prf_u32(seed, inst, rnd, t, recv, 0, prf.URN, pack=cfg.pack_version)

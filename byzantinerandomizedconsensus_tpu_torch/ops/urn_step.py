@@ -7,12 +7,13 @@ Counterpart of the reference ``ops/pallas_urn.py`` (the TPU kernel
 (c0, c1)``, two (B, n) int32:
 
 - :func:`step_counts` launches the hand-written CUDA kernel
-  (``csrc/urn_step.cu``): one CTA per instance, one thread per receiver,
-  each thread running its own drop draws (under the adaptive family only
-  those of the biased stratum; the rest come from the preferred class in
-  closed form). It takes CUDA tensors; given CPU
-  tensors it runs the plain version, because there is no kernel to run
-  there.
+  (``csrc/urn_step.cu``): one CTA per instance, one thread per receiver (up
+  to four past n = 1024), each thread running its own drop draws (under the
+  adaptive family only those of the biased stratum; the rest come from the
+  preferred class in closed form); under Ben-Or's Byzantine pairing the
+  kernel draws the two class rows from the faulty plane. It takes CUDA
+  tensors; given CPU tensors it runs the plain version, because there is no
+  kernel to run there.
 - :func:`step_counts_plain` is ``ops/urn.py::counts_fn``.
 
 :func:`counts_fn` is the round body's delivery hook. The surface is
@@ -29,7 +30,7 @@ from byzantinerandomizedconsensus_tpu_torch.ops import _step, urn
 #: Launches of the CUDA kernel since the count was last set to 0.
 launches = 0
 
-#: The plain version: ``ops/urn.py::counts_fn`` (``stats`` gains ``urn_draws``).
+#: The plain version: ``ops/urn.py::counts_fn`` (``stats`` gains its work counters).
 step_counts_plain = urn.counts_fn
 
 
@@ -43,8 +44,9 @@ def step_counts(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
                 honest: torch.Tensor):
     """(c0, c1) for one broadcast step through the CUDA kernel; CPU tensors
     run :func:`step_counts_plain`. The kernel takes adaptive_min's minority
-    from the non-faulty wire values, which are the honest ones, so it does
-    not read ``honest``."""
+    from the non-faulty wire values, which are the honest ones, and under
+    Ben-Or's Byzantine pairing the wire values are the honest ones, so it
+    does not read ``honest``."""
     global launches
     _step.check_step_supported(cfg)
     if inst_ids.device.type == "cpu":

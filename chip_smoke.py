@@ -79,7 +79,25 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``artifacts/n2048_r7.json``; config1-5 under urn3 against the
    ``preset_rows`` of ``artifacts/divergence_r6.json``, and config4 under
    urn3 at 100,000 instances against plain; each timed cell as in phase 7;
-10. a ``{"kernels": [...]}`` line, the card line, and last
+10. the keys and urn laws over the per-config surface: ``keys_step`` and
+   ``urn_step`` against their plain versions at every step of a grid (both
+   protocols × every static adversary × both coins, n 4 to 4096: packing
+   laws v1 and v2, Ben-Or's Byzantine equivocation and two-faced rows);
+   config1-5 under §4b urn through ``fused_round`` (its libraries
+   ``fused_round_urn_r1`` and ``_r4``) and through ``urn_step``, both
+   against the histograms of ``artifacts/product_r4.json`` and against
+   each other per instance; config1-4 under keys through ``keys_step``,
+   ids 0-255 against ``artifacts/sweep_keys_shipped/`` and against the plain
+   path on the card (config4: ids 0-1999), and Ben-Or's Byzantine pairing
+   (n=64, f=12) under keys and urn against its records there; the 15 rows
+   of ``artifacts/divergence_r5.json`` under keys and under urn (both
+   kernels); the two urn rows of ``artifacts/fused_r20.json`` and config
+   5's shape under urn at n = 2048 and 4096 against plain; each timed cell
+   (config2-4 under both laws, config 5 at n = 4096 under urn through
+   ``fused_round``) with its walls, the kernel's device time (a per-step
+   run's launches in one CUDA graph), the plain version's time, the bound
+   and kernel/bound, failing if a kernel beats its bound;
+11. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,6 +110,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -166,6 +185,31 @@ LEG_FIELDS = ("decision_histogram", "mean_rounds_decided", "max_rounds", "rounds
 COMMITTEE_INSTANCES = 2000
 PHASE9_PLAIN_PAIRS = 1 << 24
 INITS = ("random", "all0", "all1", "split")
+# Phase 10's references: the reference's product run of config1-5 under the
+# §4b urn law (decision and round histograms, mean rounds of the decided),
+# the divergence tool's 15 rows under keys and urn, the per-instance records
+# of config1-4 under keys and of a Ben-Or Byzantine configuration
+# (artifacts/sweep_keys_shipped/make_reference.py), and the two urn rows of
+# the reference's fused-kernel record (artifacts/fused_r20.json, its keys).
+PRODUCT_URN_FILE = "artifacts/product_r4.json"
+DIVERGENCE_R5_FILE = "artifacts/divergence_r5.json"
+SWEEP_KEYS_SHIPPED_FILE = ("artifacts/sweep_keys_shipped/{protocol}_n{n}_f{f}_{adversary}_"
+                           "{coin}_{delivery}_s0_i0-{hi}.npz")
+BENOR_BYZANTINE = dict(protocol="benor", n=64, f=12, instances=256, adversary="byzantine",
+                       coin="local")
+FUSED_R20_URN_ROWS = (
+    dict(protocol="benor", n=8, f=1, instances=12, adversary="crash", coin="shared",
+         round_cap=32, seed=0),
+    dict(protocol="benor", n=12, f=2, instances=8, adversary="adaptive_min", coin="shared",
+         round_cap=48, seed=0, faults="partition"),
+)
+# The widths of phase 10's per-step grid: packing law v1 up to 256, v2 at
+# 1100 and 4096; instances per config and round cap there.
+LAW_GRID = ((4, 16), (64, 16), (256, 8), (1100, 4), (4096, 2))
+LAW_GRID_ROUNDS = 2
+# The plain version on config4 under keys, ids 0..PLAIN_KEYS_IDS-1: its
+# (B, n, n) keys make all 100,000 instances take minutes.
+PLAIN_KEYS_IDS = 2000
 
 # The goldens of spec/golden/golden.npz on the per-step surface, with the
 # configs of spec/golden/regen.py (delivery "keys" is SimConfig's default).
@@ -546,36 +590,57 @@ def crossing_pairs(cfg, values: torch.Tensor, silent: torch.Tensor,
     return int(hashed.sum())
 
 
-def urn_draws(cfg, values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor,
-              honest: torch.Tensor):
-    """(draws, PRF words, drops) of one urn step on these planes: the
+def urn_draws(cfg, seed, ids, rnd, t, values: torch.Tensor, silent: torch.Tensor,
+              faulty: torch.Tensor, honest: torch.Tensor):
+    """(draws, PRF words, drops) of one urn step on these planes, from the
+    plain version's work counters (``ops/urn.py::counts_fn``): the
     receivers with D > 0 need a PRF word each; two strata draw min(D, B0)
     per receiver, B0 being its live biased messages other than its own, and
     one stratum D (``csrc/urn_step.cuh::urn_counts``); drops is the sum of D."""
     from byzantinerandomizedconsensus_tpu_torch.ops import urn
 
-    _, m, st, _, D = urn.lane_setup(cfg, values, silent, faulty, honest)
-    D = D.to(torch.int64)
-    drawn = D
-    if st is not None:
-        B0 = sum(torch.where(s, c, 0).to(torch.int64) for s, c in zip(st, m))
-        drawn = torch.minimum(D, B0)
-    return int(drawn.sum()), int((D > 0).sum()), int(D.sum())
+    stats = {}
+    urn.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest, stats=stats)
+    return (int(stats["urn_random_draws"].sum()), int(stats["urn_words"].sum()),
+            int(stats["urn_draws"].sum()))
+
+
+def equivocation_words(cfg, call) -> int:
+    """The PRF words of Ben-Or's Byzantine pairing in one keys step: one per
+    (receiver, delivered faulty sender) pair, own message included, from the
+    plain version's counter (0 under any other adversary)."""
+    from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
+    from byzantinerandomizedconsensus_tpu_torch.ops import keys_step
+
+    if not two_faced(cfg):
+        return 0
+    stats = {}
+    keys_step.step_counts_plain(cfg, *call[:7], stats=stats)
+    return stats["equivocation_words"]
 
 
 def step_bound(law, cfg, call):
     """(operations, bytes, PRF words, the earlier count's operations) the
-    step must do on these inputs."""
+    step must do on these inputs. Under Ben-Or's Byzantine pairing the keys
+    step adds a word per delivered faulty (receiver, sender) pair, the urn
+    step two per faulty sender (its two class values)."""
+    from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
+
     seed, ids, rnd, t, values, silent, faulty, honest = call
     B, n = values.shape
     if law == "keys":
         words = crossing_pairs(cfg, values, silent, faulty)
         tables = 2 if cfg.adversary == "adaptive" else 1
         ops = words * (OPS_PER_PRF_WORD + OPS_PER_KEY) + B * n * tables
+        equiv = equivocation_words(cfg, call)
+        ops += equiv * OPS_PER_PRF_WORD
         nbytes = B * (4 + 3 * n + 8 * n)
-        return ops, nbytes, words, ops
-    draws, words, drops = urn_draws(cfg, values, silent, faulty, honest)
-    per_draw = OPS_PER_URN_DRAW if cfg.adversary != "none" else OPS_PER_SINGLE_URN_DRAW
+        return ops, nbytes, words + equiv, ops
+    draws, words, drops = urn_draws(cfg, *call)
+    if two_faced(cfg):
+        words += 2 * int(faulty.sum())
+    per_draw = (OPS_PER_URN_DRAW if cfg.adversary in ("adaptive", "adaptive_min")
+                else OPS_PER_SINGLE_URN_DRAW)
     ops = words * OPS_PER_PRF_WORD + draws * per_draw
     earlier = B * n * OPS_PER_PRF_WORD + drops * EARLIER_OPS_PER_URN_DRAW
     planes = 3 if cfg.adversary == "adaptive_min" else 2
@@ -693,7 +758,7 @@ def config5_phase(dev, card):
                       f"search {search_ops:.4g}, {search_ops / INT_OPS_PER_S * 1e3:.3f} ms "
                       f"at the issue peak")
         else:
-            draws = [urn_draws(cfg, *call[4:8])[:2] for call in calls]
+            draws = [urn_draws(cfg, *call)[:2] for call in calls]
             design = (f"; draws and PRF words (receivers with D > 0) by launch {draws}; "
                       f"PRF words {words / n_calls:.6g} per launch; "
                       f"the earlier design's count (a word per receiver, 10 ops for each of "
@@ -728,7 +793,9 @@ def fused_bound(cfg, stats: dict, B: int):
     coin, per instance under the shared one), per replica at a random init,
     per faulty sender and step under the Byzantine adversary, and under
     omission the burst gate's word per instance and round and a bit word per
-    fault-prone replica in a burst round; under urn3 a word per receiver
+    fault-prone replica in a burst round; under urn a word per receiver with
+    a drop and the draws that need a random word (as the per-step urn
+    kernel, whose draws K1 calls); under urn3 a word per receiver
     with a drop, under committee a membership word per replica and step and
     a drop word per receiver with a drop, and their cheap-law segments; the
     ids read, the results written and the adversary's and the fault
@@ -744,9 +811,13 @@ def fused_bound(cfg, stats: dict, B: int):
     words = (stats.get("chain_seeds", 0) + stats["coin_words"]
              + (B * cfg.n if cfg.init == "random" else 0)
              + byz * cfg.f * stats["instance_rounds"] + stats.get("fault_words", 0)
-             + stats.get("urn3_words", 0) + stats.get("committee_draws", 0))
+             + stats.get("urn3_words", 0) + stats.get("committee_draws", 0)
+             + stats.get("urn_words", 0))
+    per_urn_draw = (OPS_PER_URN_DRAW if cfg.adversary in ("adaptive", "adaptive_min")
+                    else OPS_PER_SINGLE_URN_DRAW)
     ops = (stats.get("chain_trips", 0) * OPS_PER_CHAIN_DRAW + words * OPS_PER_PRF_WORD
-           + stats.get("cheap_segments", 0) * OPS_PER_CHEAP_SEGMENT)
+           + stats.get("cheap_segments", 0) * OPS_PER_CHEAP_SEGMENT
+           + stats.get("urn_random_draws", 0) * per_urn_draw)
     plane = {"none": 0, "crash": 5}.get(cfg.adversary, 1)
     plane += {"none": 0, "recover": 8, "partition": 1, "omission": 0}[cfg.faults]
     plane += cfg.faults != "none" and cfg.adversary == "none"
@@ -818,12 +889,14 @@ def instantiation_ptxas(cfg) -> str:
     return _PTXAS[lib][(cfg.protocol, cfg.adversary, cfg.faults)]
 
 
-#: Timed walls and kernel repeats of the cells of phases 7 and 8, cut from
-#: 5 and 5 when phase 9 came, to keep the script's time near what it was.
+#: Timed walls and kernel repeats of the cells of phases 7 to 10, cut from
+#: 5 and 5 as phases 9 and 10 came, to keep the script's time near what it
+#: was.
 EARLIER_WALLS = EARLIER_REPS = 3
 
 
-def shipped_run(backend, cfg, label, card, reps=5, plain_pairs=0, walls=5):
+def shipped_run(backend, cfg, label, card, reps=EARLIER_REPS, plain_pairs=0,
+                walls=EARLIER_WALLS):
     """One shipped configuration through the backend a user calls: the run
     with its launches counted, its throughput (best of ``walls`` after a
     warm-up), then the kernel and the plain version on its inputs. Returns
@@ -889,7 +962,7 @@ def shipped_phase(card):
     paths = []
     for name in ("config1", "config2", "config3"):
         cfg = preset(name)
-        res, entry = shipped_run(backend, cfg, name, card, walls=EARLIER_WALLS,
+        res, entry = shipped_run(backend, cfg, name, card,
                                  reps=2 if name == "config2" else EARLIER_REPS)
         dh, rh = decision_histogram(res).tolist(), round_histogram(res).tolist()
         want = product[name]
@@ -903,8 +976,7 @@ def shipped_phase(card):
     for n in SWEEP_NS:
         cfg = sweep_point(n)
         want_rounds, want_dec = load_sweep_urn2(n, cfg.instances)
-        res, entry = shipped_run(backend, cfg, f"config5 n={n}", card, walls=EARLIER_WALLS,
-                                 reps=EARLIER_REPS)
+        res, entry = shipped_run(backend, cfg, f"config5 n={n}", card)
         bad = (res.rounds != want_rounds) | (res.decision != want_dec)
         if bad.any():
             i = int(np.flatnonzero(bad)[0])
@@ -934,6 +1006,13 @@ def shipped_phase(card):
     return paths
 
 
+def f_of(protocol, n, adversary):
+    """The largest f each protocol allows at n: Bracha n > 3f, Ben-Or n > 5f
+    under a lying adversary and n > 2f otherwise."""
+    lying = adversary in ("byzantine", "adaptive", "adaptive_min")
+    return (n - 1) // 3 if protocol == "bracha" else (n - 1) // (5 if lying else 2)
+
+
 def fault_grid():
     """Both protocols under every static adversary and each §9 fault kind:
     at n=13 (Bracha) and n=16 (Ben-Or) with both coins and a round cap the
@@ -941,10 +1020,6 @@ def fault_grid():
     and n=1024 for both protocols, the coin alternating by adversary, with a
     short round cap, so capped instances occur."""
     from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
-
-    def f_of(protocol, n, adversary):
-        lying = adversary in ("byzantine", "adaptive", "adaptive_min")
-        return (n - 1) // 3 if protocol == "bracha" else (n - 1) // (5 if lying else 2)
 
     out = []
     for faults in FAULT_KINDS:
@@ -1032,8 +1107,7 @@ def fault_phase(dev, card):
     for kind in FAULT_KINDS:
         cfg = preset("config4", faults=kind)
         z = np.load(ROOT / SWEEP_FAULTS_FILE.format(kind=kind))
-        res, entry = shipped_run(backend, cfg, f"config4 {kind}", card, walls=EARLIER_WALLS,
-                                 reps=EARLIER_REPS)
+        res, entry = shipped_run(backend, cfg, f"config4 {kind}", card)
         n_ref = len(z["inst_ids"])
         if not np.array_equal(res.inst_ids[:n_ref], z["inst_ids"]):
             fail(f"the reference of config4 {kind} does not cover the run's first ids")
@@ -1263,6 +1337,350 @@ def wide_kernels(paths) -> list:
     return out
 
 
+def law_grid(law):
+    """Phase 10's per-step grid: both protocols × every static adversary ×
+    both coins × n in LAW_GRID, every init in turn, a short round cap."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    out = []
+    for protocol in FUSED_PROTOCOLS:
+        for adversary in FUSED_ADVERSARIES:
+            for coin in ("shared", "local"):
+                for n, B in LAW_GRID:
+                    out.append(SimConfig(
+                        protocol=protocol, n=n, f=f_of(protocol, n, adversary),
+                        instances=1000, adversary=adversary, coin=coin,
+                        init=INITS[len(out) % 4], delivery=law,
+                        round_cap=LAW_GRID_ROUNDS, seed=len(out) + 4001).validate())
+    return out
+
+
+def law_grid_phase(dev):
+    """K2 and K3 against their plain versions at every step of the grid's
+    runs, through the real round bodies."""
+    from byzantinerandomizedconsensus_tpu_torch.models import driver
+
+    for law, name in STEP_LAWS.items():
+        t0 = time.perf_counter()
+        seen, grid = {"steps": 0}, law_grid(law)
+        for cfg in grid:
+            B = dict(LAW_GRID)[cfg.n]
+            ids = torch.arange(B, dtype=torch.int32, device=dev) * 37
+            driver.run_chunk(cfg, ids, counts_fn=checking_counts_fn(law, seen))
+        say(f"[laws] {name} == plain on {seen['steps']} steps of {len(grid)} configs "
+            f"(both protocols, every static adversary, both coins, n "
+            f"{[n for n, _ in LAW_GRID]}, rounds 0-{LAW_GRID_ROUNDS - 1}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def run_counted(backend, cfg, kernel, label):
+    """One run of ``cfg`` through ``backend`` with the launch counts set to
+    0 just before and read just after; fails unless ``kernel`` launched and
+    no other kernel did."""
+    backend.prepare(cfg)
+    reset_launches()
+    res = backend.timed_run(cfg)
+    launches = read_launches()
+    if launches[kernel] < 1 or any(v for k, v in launches.items() if k != kernel):
+        fail(f"{label} did not run through {kernel} alone: launches {launches}")
+    return res, launches[kernel]
+
+
+def check_equal_results(a, b, label):
+    bad = (a.rounds != b.rounds) | (a.decision != b.decision)
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        fail(f"{label}: {int(bad.sum())} instances differ; first id {int(a.inst_ids[i])}: "
+             f"({a.rounds[i]}, {a.decision[i]}) vs ({b.rounds[i]}, {b.decision[i]})")
+
+
+def graph_run_ms(fns, replays: int = 3) -> float:
+    """Device time of one pass over ``fns`` (kernel launches on the current
+    stream): all captured in one CUDA graph, each call's outputs kept, the
+    replay timed by CUDA events, the mean over ``replays``."""
+    for fn in fns:  # warm-up outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            outs.append(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, replays)
+    del graph, outs
+    return ms
+
+
+def step_cell(cfg, law, label, card, dev, plain_ids=None):
+    """A timed cell of a per-step law through ``get_backend("torch",
+    kernel="step")``: the run with its launches counted, its throughput
+    (best of 3 walls after a warm-up), then every launch of the run
+    recorded and replayed: the kernel's device time of a whole run (all its
+    launches in one CUDA graph), the plain version on the same inputs
+    (timed on the host clock; on instances 0..plain_ids-1 when given) and
+    compared with the kernel, and the bound summed over the launches from
+    each launch's planes. Fails if the kernel beats its bound. Returns the
+    path entry."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.ops import _step
+
+    name = STEP_LAWS[law]
+    backend = get_backend("torch", kernel="step")
+    res, launches = run_counted(backend, cfg, name, label)
+    backend.timed_run(cfg)  # warm-up
+    walls = [backend.timed_run(cfg).wall_s for _ in range(EARLIER_WALLS)]
+    calls = recorded_launches(cfg, law, dev)
+    mod = step_module(law)
+    kernel_ms = graph_run_ms([lambda c=call: mod.counts_fn(cfg, *c) for call in calls])
+    err, plain_ms, ops, nbytes, words, bound_ms = 0, 0.0, 0, 0, 0, 0.0
+    ops_ms_sum = bytes_ms_sum = 0.0
+    for call in calls:
+        got = mod.counts_fn(cfg, *call)
+        seed, ids, rnd, t, *planes = call
+        if plain_ids is not None:
+            ids, planes = ids[:plain_ids], [x[:plain_ids] for x in planes]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_step(law, cfg, seed, ids, rnd, t, *planes)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        k = want[0].shape[0]
+        err = max(err, step_counts_max_err((got[0][:k], got[1][:k]), want))
+        o, b, w, _ = step_bound(law, cfg, call)
+        o_ms, b_ms = o / INT_OPS_PER_S * 1e3, b / HBM_BYTES_PER_S * 1e3
+        bound_ms += max(o_ms, b_ms)
+        ops_ms_sum, bytes_ms_sum = ops_ms_sum + o_ms, bytes_ms_sum + b_ms
+        ops, nbytes, words = ops + o, nbytes + b, words + w
+    if err != 0:
+        fail(f"{name} differs from plain on {label} (max abs err {err})")
+    if kernel_ms < bound_ms:
+        fail(f"{name} took {kernel_ms:.5f} ms on {label}, under its bound of "
+             f"{bound_ms:.5f} ms: the bound's count is wrong")
+    n_calls = len(calls)
+    on = "" if plain_ids is None else f" on ids 0-{plain_ids - 1}"
+    say(f"[cell] {label} ({cfg.protocol}, {cfg.adversary}, n={cfg.n}, f={cfg.f}, {cfg.coin} "
+        f"coin, {cfg.delivery}, {len(res.inst_ids)} instances) through {name} "
+        f"({_step.library(name, cfg)}): "
+        f"instances/s = {len(res.inst_ids) / min(walls)} (best of {EARLIER_WALLS} walls "
+        f"{walls} s); {name} {kernel_ms:.4f} ms of device time a run ({n_calls} launches "
+        f"in one CUDA graph, mean of 3 replays, CUDA events; {kernel_ms / n_calls:.5f} ms a "
+        f"launch), {launches} launches; plain {plain_ms:.1f} ms{on}; bound "
+        f"{bound_ms:.5f} ms from {ops:.4g} int ops ({words} PRF words) and {nbytes} bytes; "
+        f"kernel/bound {kernel_ms / bound_ms:.2f}; {card}")
+    return {"config": label, "kernel": name, "library": _step.library(name, cfg),
+            "instances": len(res.inst_ids), "launches": launches, "max_abs_err": err,
+            "ms": kernel_ms, "ms_per_launch": kernel_ms / n_calls, "plain_ms": plain_ms,
+            "plain_ms_per_launch": plain_ms / n_calls, "plain_ids": plain_ids,
+            "bound_ms": bound_ms, "bound_ms_per_launch": bound_ms / n_calls,
+            "bound_by": "operations" if ops_ms_sum >= bytes_ms_sum else "bytes",
+            "instances_per_s": len(res.inst_ids) / min(walls), "walls_s": walls}
+
+
+def histogram_fields(res) -> dict:
+    from byzantinerandomizedconsensus_tpu_torch.cli import decision_histogram, round_histogram
+
+    decided = res.rounds[res.decision != 2]
+    return {"decision_histogram": decision_histogram(res).tolist(),
+            "round_histogram": round_histogram(res).tolist(),
+            "mean_rounds_decided": float(decided.mean()) if len(decided) else None}
+
+
+def urn_product_phase(card, dev):
+    """config1-5 under §4b urn as shipped through K1 and through K3, each
+    against the reference's histograms and K1 against K3 per instance; the
+    timed cells config2-4 on both kernels. Returns (K1 paths, K3 paths)."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import SWEEP_POINT_N, sweep_point
+
+    product = json.loads((ROOT / PRODUCT_URN_FILE).read_text())
+    fused, step = get_backend("torch"), get_backend("torch", kernel="step")
+    k1_paths, k3_paths = [], []
+    for name in ("config1", "config2", "config3", "config4", "config5"):
+        cfg = (dataclasses.replace(sweep_point(SWEEP_POINT_N), delivery="urn").validate()
+               if name == "config5" else preset(name, delivery="urn"))
+        label = f"{name} urn"
+        if name in ("config2", "config3", "config4"):
+            r1, entry = shipped_run(fused, cfg, f"{label} (K1)", card)
+            k1_paths.append(entry)
+        else:
+            r1, _ = run_counted(fused, cfg, "fused_round", f"{label} (K1)")
+        r3, _ = run_counted(step, cfg, "urn_step", f"{label} (K3)")
+        check_equal_results(r1, r3, f"{label}: fused_round and urn_step")
+        want = product[name]
+        for res, kernel in ((r1, "fused_round"), (r3, "urn_step")):
+            got = histogram_fields(res)
+            rh = got["round_histogram"]
+            diff = {k: (got[k], want[k]) for k in ("decision_histogram", "mean_rounds_decided")
+                    if got[k] != want[k]}
+            if diff or rh != want["round_histogram"][:len(rh)] or any(
+                    want["round_histogram"][len(rh):]):
+                fail(f"{label} through {kernel} differs from {PRODUCT_URN_FILE}: {diff}, "
+                     f"rounds {[(r, c) for r, c in enumerate(rh) if c]}")
+        say(f"[urn] {label} ({len(r1.inst_ids)} instances): fused_round and urn_step equal "
+            f"per instance, and both equal {PRODUCT_URN_FILE}: decision_histogram "
+            f"{got['decision_histogram']}, the round histogram, mean_rounds_decided "
+            f"{got['mean_rounds_decided']}")
+        if name in ("config2", "config3", "config4"):
+            k3_paths.append(step_cell(cfg, "urn", f"{label} (K3)", card, dev))
+    return k1_paths, k3_paths
+
+
+def check_against_shard(res, cfg, label):
+    """Instances 0..hi-1 of ``res`` against their committed record in
+    ``artifacts/sweep_keys_shipped/``."""
+    path = SWEEP_KEYS_SHIPPED_FILE.format(protocol=cfg.protocol, n=cfg.n, f=cfg.f,
+                                          adversary=cfg.adversary, coin=cfg.coin,
+                                          delivery=cfg.delivery,
+                                          hi=min(256, cfg.instances))
+    return check_per_instance(res, path, label), path
+
+
+def keys_shipped_phase(card, dev):
+    """config1-4 under the keys law through K2: ids 0-255 against the
+    committed record, the plain version on the card on all ids (config4: ids
+    0-1999), the timed cells config2-4; then Ben-Or's Byzantine pairing
+    under keys (K2) and urn (K1, K3) against its records. Returns the K2
+    paths."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    step, fused = get_backend("torch", kernel="step"), get_backend("torch")
+    plain = get_backend("torch", kernel="plain")
+    paths = []
+    for name in ("config1", "config2", "config3", "config4"):
+        cfg = preset(name, delivery="keys")
+        label = f"{name} keys"
+        res, _ = run_counted(step, cfg, "keys_step", f"{label} (K2)")
+        n_ref, path = check_against_shard(res, cfg, label)
+        ids = None if name != "config4" else np.arange(PLAIN_KEYS_IDS)
+        t0 = time.perf_counter()
+        pres = plain.run(cfg, inst_ids=ids)
+        plain_s = time.perf_counter() - t0
+        k = len(pres.inst_ids)
+        check_equal_results(types.SimpleNamespace(inst_ids=res.inst_ids[:k],
+                                                  rounds=res.rounds[:k],
+                                                  decision=res.decision[:k]),
+                            pres, f"{label}: keys_step and the plain path")
+        say(f"[keys] {label} ({len(res.inst_ids)} instances) through keys_step: ids "
+            f"0-{n_ref - 1} equal {path}, ids 0-{k - 1} equal the plain path on the card "
+            f"({plain_s:.1f} s); {histogram_fields(res)['decision_histogram']}")
+        if name != "config1":
+            paths.append(step_cell(cfg, "keys", f"{label} (K2)", card, dev,
+                                   plain_ids=PLAIN_KEYS_IDS if name == "config4" else None))
+    for law in ("keys", "urn"):
+        cfg = SimConfig(delivery=law, **BENOR_BYZANTINE).validate()
+        label = f"Ben-Or byzantine n=64 f=12 {law}"
+        runs = [run_counted(step, cfg, STEP_LAWS[law], f"{label} ({STEP_LAWS[law]})")[0]]
+        if law == "urn":
+            runs.append(run_counted(fused, cfg, "fused_round", f"{label} (fused_round)")[0])
+        for res in runs:
+            n_ref, path = check_against_shard(res, cfg, label)
+        check_equal_results(runs[0], plain.run(cfg), f"{label}: kernel and plain path")
+        say(f"[keys] {label}: ids 0-{n_ref - 1} through "
+            f"{' and '.join(['keys_step'] if law == 'keys' else ['urn_step', 'fused_round'])} "
+            f"equal {path} and the plain path on the card")
+        if law == "keys":
+            paths.append(step_cell(cfg, "keys", f"{label} (K2)", card, dev))
+    return paths
+
+
+def divergence_r5_phase():
+    """The divergence tool's 15 rows under keys (K2) and urn (K1 and K3):
+    mean rounds, p1 and the capped share of each law, and the sum of rounds
+    equal to mean_rounds × instances."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    rows = json.loads((ROOT / DIVERGENCE_R5_FILE).read_text())["rows"]
+    step, fused = get_backend("torch", kernel="step"), get_backend("torch")
+    t0 = time.perf_counter()
+    for row in rows:
+        fields = {k: row[k] for k in ("protocol", "n", "f", "adversary", "coin", "seed",
+                                      "round_cap", "instances")}
+        for law, runs in (("keys", ((step, "keys_step"),)),
+                          ("urn", ((fused, "fused_round"), (step, "urn_step")))):
+            cfg = SimConfig(delivery=law, **fields).validate()
+            for backend, kernel in runs:
+                res, _ = run_counted(backend, cfg, kernel, f"divergence row {fields} {law}")
+                got = {f"mean_rounds_{law}": float(res.rounds.mean()),
+                       f"p1_{law}": float((res.decision == 1).mean()),
+                       f"capped_{law}": float((res.decision == 2).mean())}
+                total = int(res.rounds.sum())
+                diff = {k: (v, row[k]) for k, v in got.items() if row[k] != v}
+                if diff or total != round(row[f"mean_rounds_{law}"] * cfg.instances):
+                    fail(f"divergence row {fields} under {law} through {kernel} differs "
+                         f"from {DIVERGENCE_R5_FILE}: {diff}, sum of rounds {total}")
+    say(f"[divergence] the {len(rows)} rows of {DIVERGENCE_R5_FILE}: mean rounds (sum of "
+        f"rounds = mean × instances), p1 and capped equal under keys through keys_step and "
+        f"under urn through fused_round and urn_step, in {time.perf_counter() - t0:.1f} s")
+
+
+def urn_wide_phase(card, dev):
+    """The two urn rows of artifacts/fused_r20.json, and config 5's shape
+    under urn at n = 2048 and 4096, through K1 (layout R = 4 past 1024) and
+    K3 (law v2) against the plain version; n = 4096 timed. Returns the K1
+    path of n = 4096."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, sweep_point
+    from byzantinerandomizedconsensus_tpu_torch.models import driver
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
+    for fields in FUSED_R20_URN_ROWS:
+        cfg = SimConfig(delivery="urn", **fields).validate()
+        ids = torch.arange(cfg.instances, dtype=torch.int32, device=dev)
+        rp, dp = compare(cfg, ids)
+        if cfg.faults == "none":  # the per-step kernels have no fault channel
+            rk, dk = driver.run_chunk(cfg, ids, counts_fn=step_module("urn").counts_fn)
+            if not (torch.equal(rk, rp) and torch.equal(dk, dp)):
+                fail(f"urn_step differs from plain on the fused_r20 row {fields}")
+        say(f"[urn] {fields}: fused_round == plain"
+            f"{' == urn_step' if cfg.faults == 'none' else ''} on its {cfg.instances} "
+            f"instances; decisions {dp.tolist()}, rounds {rp.tolist()}")
+    fused, step = get_backend("torch"), get_backend("torch", kernel="step")
+    path = None
+    for n in (2048, 4096):
+        cfg = dataclasses.replace(sweep_point(n), delivery="urn").validate()
+        label = f"config5 n={n} urn"
+        if n == 4096:
+            r1, path = shipped_run(fused, cfg, f"{label} (K1)", card,
+                                   plain_pairs=PHASE9_PLAIN_PAIRS)
+        else:
+            r1, _ = run_counted(fused, cfg, "fused_round", f"{label} (K1)")
+            ids = torch.as_tensor(r1.inst_ids, dtype=torch.int32, device=dev)
+            chunk = max(1, PHASE9_PLAIN_PAIRS // cfg.n)
+            rp = torch.cat([fused_round.run_chunk_plain(cfg, ids[lo:lo + chunk])[0]
+                            for lo in range(0, len(ids), chunk)])
+            if not np.array_equal(rp.cpu().numpy(), r1.rounds):
+                fail(f"{label}: fused_round differs from plain")
+        r3, _ = run_counted(step, cfg, "urn_step", f"{label} (K3)")
+        check_equal_results(r1, r3, f"{label}: fused_round and urn_step")
+        say(f"[urn] {label} ({cfg.instances} instances): fused_round ({fused_round.library(cfg)}) "
+            f"== urn_step (law v2) == plain per instance; {histogram_fields(r1)['decision_histogram']}")
+    k3 = step_cell(cfg, "urn", f"{label} (K3)", card, dev)
+    return path, k3
+
+
+def laws_phase(dev, card):
+    """Phase 10: the keys and urn laws over the per-config surface. Returns
+    (K1 paths, {library: its timed path}, K2 paths, K3 paths): the two urn
+    libraries of K1 and the wide libraries of K2 and K3."""
+    t0 = time.perf_counter()
+    law_grid_phase(dev)
+    k1_paths, k3_paths = urn_product_phase(card, dev)
+    k2_paths = keys_shipped_phase(card, dev)
+    divergence_r5_phase()
+    wide, k3_wide = urn_wide_phase(card, dev)
+    k1_paths.append(wide)
+    k3_paths.append(k3_wide)
+    libs = {"fused_round_urn_r1": next(p for p in k1_paths if p["config"] == "config4 urn (K1)"),
+            "fused_round_urn_r4": wide,
+            "keys_step_wide": next(p for p in k2_paths if p["library"] == "keys_step_wide"),
+            "urn_step_wide": k3_wide}
+    say(f"[laws] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return k1_paths, libs, k2_paths, k3_paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1408,6 +1826,27 @@ def main() -> int:
     kernels[0]["paths"] += wide_paths
     kernels += wide_kernels(wide_paths)
     say(f"[wide] phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # Phase 10: the keys and urn laws over the per-config surface.
+    k1_paths, new_libs, k2_paths, k3_paths = laws_phase(dev, card)
+    kernels[0]["paths"] += k1_paths
+    by_name = {k["name"]: k for k in kernels}
+    by_name["keys_step"]["paths"] = k2_paths
+    by_name["urn_step"]["paths"] = k3_paths
+    for lib, p in new_libs.items():
+        step = lib.endswith("_wide")
+        kernels.append({
+            "name": lib, "route": "cuda",
+            "source": f"byzantinerandomizedconsensus_tpu_torch/csrc/{lib}.cu",
+            "replaces": (STEP_REPLACES[p["kernel"]] if step
+                         else "byzantinerandomizedconsensus_tpu/ops/pallas_round.py:268"),
+            "path": p["config"], "launches": p["launches"], "max_abs_err": p["max_abs_err"],
+            # The step libraries' times per launch, as keys_step's and urn_step's.
+            "ms": p["ms_per_launch"] if step else p["ms"],
+            "plain_ms": p["plain_ms_per_launch"] if step else p["plain_ms"],
+            "bound_ms": p["bound_ms_per_launch"] if step else p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": None,
+        })
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -4,11 +4,15 @@
     python3 keys_step_ab.py --kernel urn_step --extract chip_archive/urn_step_old --rev REV
     python3 keys_step_ab.py --kernel urn_step --old chip_archive/urn_step_old
     python3 keys_step_ab.py --kernel fused_round --old chip_archive/fused_round_old
+    python3 keys_step_ab.py --kernel keys_step --old chip_archive/keys_step_old --sass
 
 ``--kernel`` is ``keys_step`` (the default), ``urn_step`` or ``fused_round``.
 ``--extract``
 (in a git checkout) writes the earlier version's sources of that kernel
-(``SOURCES``) from revision ``--rev`` into a directory. ``--old`` needs one
+(``SOURCES``, those the revision has) from revision ``--rev`` into a
+directory. ``--sass`` with ``--old`` (one card's machine, ``nvcc``) only
+compares the two builds' SASS of the kernel's instantiation that config 5
+runs (``SASS_FUNCTIONS``; config4's for ``fused_round``) and stops. ``--old`` needs one
 CUDA card and ``nvcc``: it builds that directory's ``<kernel>.cu`` with the
 port's flags into a temporary directory outside the repo, records the inputs
 of every launch of the kernel in one run of config 5 at n=512 under its law
@@ -52,9 +56,18 @@ import chip_smoke
 
 #: The sources of each kernel's build: its .cu and every header it includes.
 SOURCES = {
-    "keys_step": ("keys_step.cu", "keys_step.cuh", "prf.cuh"),
+    "keys_step": ("keys_step.cu", "keys_step_kernel.cuh", "keys_step.cuh", "prf.cuh"),
     "urn_step": ("urn_step.cu", "urn_step.cuh", "keys_step.cuh", "prf.cuh"),
     "fused_round": ("fused_round.cu", "fused_round.cuh", "prf.cuh"),
+}
+#: The function whose SASS ``--sass`` compares, as a part of its mangled
+#: name in the earlier build and in the current one: config 5's
+#: instantiation of each step kernel (packing law v1, no equivocation; the
+#: keys kernel became a template on (PACK, EQUIV)), config4's of fused_round.
+SASS_FUNCTIONS = {
+    "keys_step": ("keys_step_kernelE", "keys_step_kernelILi1ELb0EE"),
+    "urn_step": ("urn_step_kernelE", "urn_step_kernelE"),
+    "fused_round": ("fused_round_kernelILi1ELi0ELi0EE", "fused_round_kernelILi1ELi0ELi0EE"),
 }
 LAWS = {name: law for law, name in chip_smoke.STEP_LAWS.items()}
 CSRC = "byzantinerandomizedconsensus_tpu_torch/csrc"
@@ -62,11 +75,14 @@ CSRC = "byzantinerandomizedconsensus_tpu_torch/csrc"
 
 def extract(kernel: str, rev: str, out: pathlib.Path) -> None:
     out.mkdir(parents=True, exist_ok=True)
+    wrote = []
     for name in SOURCES[kernel]:
-        text = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"], capture_output=True,
-                              text=True, check=True).stdout
-        (out / name).write_text(text)
-    print(f"wrote {', '.join(SOURCES[kernel])} of {rev} to {out}")
+        got = subprocess.run(["git", "show", f"{rev}:{CSRC}/{name}"], capture_output=True,
+                             text=True)
+        if got.returncode == 0:
+            (out / name).write_text(got.stdout)
+            wrote.append(name)
+    print(f"wrote {', '.join(wrote)} of {rev} to {out}")
 
 
 def build_old(kernel: str, src: pathlib.Path, tmp: pathlib.Path):
@@ -154,22 +170,37 @@ def sass(lib: pathlib.Path, kernel: str) -> list:
     chip_smoke.fail(f"no function {kernel} in {lib}")
 
 
-def sass_diff(old_lib: pathlib.Path) -> None:
-    """Print how config4's instantiation, (bracha, none) before and
-    (bracha, none, none) now, differs between the earlier build and the
-    current one."""
+def sass_diff(kernel: str, old_lib: pathlib.Path, old_name: str = None) -> None:
+    """Print how the instantiation ``SASS_FUNCTIONS[kernel]`` differs
+    between the earlier build and the current one, instruction by
+    instruction, as compiled and with the parameters' constant-bank offsets
+    masked. ``old_name`` names the function in the earlier build where its
+    mangled name differs from ``SASS_FUNCTIONS``'."""
     from byzantinerandomizedconsensus_tpu_torch.ops import _build
 
-    old_ins = sass(old_lib, "fused_round_kernelILi1ELi0EE")
-    new_ins = sass(_build.library_path("fused_round"), "fused_round_kernelILi1ELi0ELi0EE")
+    old_default, new_name = SASS_FUNCTIONS[kernel]
+    old_name = old_name or old_default
+    old_ins = sass(old_lib, old_name)
+    new_ins = sass(_build.library_path(kernel), new_name)
     params = [[re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][param]", i) for i in ins]
               for ins in (old_ins, new_ins)]
     for what, (a, b) in (("as compiled", (old_ins, new_ins)),
                          ("with parameter offsets masked", params)):
-        changed = sum(1 for line in difflib.unified_diff(a, b, lineterm="", n=0)
-                      if line[:1] in "+-" and line[:3] not in ("+++", "---"))
-        print(f"[sass] config4's instantiation {what}: old {len(a)}, new {len(b)} "
-              f"instructions, {changed} lines differ", flush=True)
+        lines = [line for line in difflib.unified_diff(a, b, lineterm="", n=0)
+                 if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+        print(f"[sass] {kernel} {new_name} {what}: old {len(a)}, new {len(b)} "
+              f"instructions, {len(lines)} lines differ{': ' if lines else ''}"
+              f"{' | '.join(lines[:16])}", flush=True)
+
+
+def sass_only(kernel: str, old: pathlib.Path) -> None:
+    """Build the earlier sources and the current ones and compare their SASS."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import _build
+
+    _build.build((kernel,))
+    with tempfile.TemporaryDirectory() as tmp:
+        build_old(kernel, old, pathlib.Path(tmp))
+        sass_diff(kernel, pathlib.Path(tmp) / f"{kernel}_old.so")
 
 
 #: Rounds of turns (old, new, new, old) of the fused_round A/B: one round
@@ -198,7 +229,10 @@ def ab_fused(old: pathlib.Path) -> None:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"[ptxas] {what}: {line.strip()}", flush=True)
-        sass_diff(pathlib.Path(tmp) / "fused_round_old.so")
+        # The earlier entry point's config4 instantiation: (bracha, none), no
+        # schedule argument.
+        sass_diff("fused_round", pathlib.Path(tmp) / "fused_round_old.so",
+                  "fused_round_kernelILi1ELi0EE")
         # config4 has no adversary: null faulty and crash planes.
         old_fn = lib.brc_fused_round_launch
         old_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
@@ -255,11 +289,15 @@ def main() -> int:
     ap.add_argument("--extract", type=pathlib.Path, help="write the earlier sources here")
     ap.add_argument("--rev", help="git revision of the earlier kernel (with --extract)")
     ap.add_argument("--old", type=pathlib.Path, help="directory of the earlier sources")
+    ap.add_argument("--sass", action="store_true",
+                    help="with --old: compare the two builds' SASS only")
     args = ap.parse_args()
     if args.extract:
         if not args.rev:
             ap.error("--extract needs --rev")
         extract(args.kernel, args.rev, args.extract)
+    elif args.old and args.sass:
+        sass_only(args.kernel, args.old)
     elif args.old and args.kernel == "fused_round":
         ab_fused(args.old)
     elif args.old:

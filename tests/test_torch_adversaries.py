@@ -91,7 +91,15 @@ def _check_inject(cfg, seed=2):
         v, s, b = adv.inject(seed, torch.as_tensor(ids), rnd, t, torch.as_tensor(honest),
                              setup)
         assert v.dtype == torch.uint8 and s.dtype == torch.bool
-        np.testing.assert_array_equal(v.numpy(), wv)
+        seen = v
+        if wv.ndim == 3:
+            # Ben-Or's pairing under keys: the wire carries the honest
+            # values, and the keys law draws the reference's (B, n, n)
+            # per-receiver values.
+            np.testing.assert_array_equal(v.numpy(), honest)
+            seen = adversaries.equivocation_values(cfg, seed, torch.as_tensor(ids), rnd, t, v,
+                                                   setup["faulty"])
+        np.testing.assert_array_equal(seen.numpy(), wv)
         np.testing.assert_array_equal(s.numpy(), ws)
         assert b.shape == wb.shape
         np.testing.assert_array_equal(b.numpy(), wb.astype(bool))
@@ -121,19 +129,13 @@ def _crashes_nobody(cfg):
 @pytest.mark.parametrize("adversary", ["none", "crash", "byzantine", "adaptive",
                                        "adaptive_min"])
 def test_inject_matches_reference_under_benor(adversary, delivery):
-    """Ben-Or: under a count-level law the Byzantine pairing passes the
-    honest values through (the urn draws the two-faced class values); under
-    keys it needs the equivocation matrix, which raises by name."""
+    """Ben-Or: the Byzantine pairing passes the honest values through, and
+    each law draws the equivocation: under a count-level law the urn's
+    two-faced class values, under keys the reference's per-receiver matrix
+    (:func:`models.adversaries.equivocation_values`, held against it)."""
     lying = adversary in ("byzantine", "adaptive", "adaptive_min")
     cfg = SimConfig(protocol="benor", n=21, f=4 if lying else 10, instances=1000,
                     adversary=adversary, delivery=delivery).validate()
-    if adversary == "byzantine" and delivery == "keys":
-        adv = adversaries.AdversaryModel(cfg)
-        ids = torch.as_tensor(_ids(5, hi=1000))
-        with pytest.raises(NotImplementedError, match="byzantine.*equivocation matrix"):
-            adv.inject(2, ids, 0, 0, torch.zeros((5, 21), dtype=torch.uint8),
-                       adv.setup(2, ids))
-        return
     _check_inject(cfg)
 
 

@@ -1,6 +1,8 @@
 """The port's fused round kernel on a CUDA card against its plain torch
-version, under every §9 fault schedule, and on its urn3 and committee laws
-in each layout (n ≤ 1024, n ≤ 4096, past 4096). Each test needs a card, is marked
+version, under every §9 fault schedule, and on its urn, urn3 and committee
+laws in each layout (n ≤ 1024, n ≤ 4096, past 4096); the per-step keys and
+urn kernels against theirs on both protocols, every static adversary and
+both packing laws. Each test needs a card, is marked
 ``cuda`` and skips by name without one; this file imports only the port,
 so it runs where JAX is not installed:
 
@@ -12,7 +14,8 @@ import torch
 
 from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, committee_point
-from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+from byzantinerandomizedconsensus_tpu_torch.models import driver
+from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, keys_step, urn_step
 
 KINDS = ("none", "recover", "partition", "omission")
 
@@ -51,7 +54,8 @@ def test_backend_runs_config4_under_each_schedule_through_the_kernel(card, kind)
 
 
 LAW_CASES = [("urn3", 64, 21), ("urn3", 2048, 682), ("committee", 64, 12),
-             ("committee", 2048, 409), ("committee", 8192, 1638), ("urn2", 2048, 682)]
+             ("committee", 2048, 409), ("committee", 8192, 1638), ("urn2", 2048, 682),
+             ("urn", 64, 21), ("urn", 2048, 682)]
 
 
 @pytest.mark.cuda
@@ -77,3 +81,26 @@ def test_backend_runs_committee_point_past_v2_through_the_kernel(card):
                                                          device=card))
     assert res.rounds.tolist() == want[0].tolist()
     assert res.decision.tolist() == want[1].tolist()
+
+
+STEP_CASES = [(law, protocol, adversary, n) for law in ("keys", "urn")
+              for protocol, adversary in (("benor", "crash"), ("benor", "byzantine"),
+                                          ("benor", "adaptive"), ("bracha", "crash"),
+                                          ("bracha", "byzantine"), ("bracha", "adaptive_min"))
+              for n in (64, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law,protocol,adversary,n", STEP_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-n{c[3]}" for c in STEP_CASES])
+def test_step_kernels_match_plain_on_both_protocols_and_packs(card, law, protocol,
+                                                               adversary, n):
+    lying = adversary != "crash"
+    f = (n - 1) // 3 if protocol == "bracha" else (n - 1) // (5 if lying else 2)
+    cfg = SimConfig(protocol=protocol, n=n, f=f, instances=64, adversary=adversary,
+                    coin="shared", delivery=law, round_cap=3).validate()
+    ids = torch.arange(8, dtype=torch.int32, device=card)
+    kernel = {"keys": keys_step, "urn": urn_step}[law]
+    got = driver.run_chunk(cfg, ids, counts_fn=kernel.counts_fn)
+    want = driver.run_chunk(cfg, ids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cfg

@@ -311,14 +311,18 @@ PLAIN_CONFIGS = [
     dict(protocol="benor", n=16, f=7, instances=6, adversary="crash", delivery="keys"),
     dict(protocol="bracha", n=1100, f=366, instances=2, delivery="urn2", faults="partition",
          round_cap=4),
+    dict(protocol="benor", n=16, f=3, instances=6, adversary="byzantine", delivery="keys",
+         faults="omission"),
 ]
 
 
 @pytest.mark.parametrize("fields", PLAIN_CONFIGS,
-                         ids=["n2048-urn2", "benor-crash-keys", "n1100-partition"])
+                         ids=["n2048-urn2", "benor-crash-keys", "n1100-partition",
+                              "benor-byzantine-keys"])
 def test_plain_backend_runs_the_model_layers_surface(fields):
-    """Past the kernels' surfaces: packing law v2 and Ben-Or's crash
-    adversary under keys, through the plain backend, equal the reference."""
+    """Past the kernels' surfaces: packing law v2, Ben-Or's crash adversary
+    under keys, and Ben-Or's Byzantine pairing under keys with a fault
+    schedule, through the plain backend, equal the reference."""
     cfg = SimConfig(**fields).validate()
     want = ref_get_backend("numpy").run(_ref(cfg))
     got = get_backend("torch", device="cpu").run(cfg)
@@ -328,19 +332,17 @@ def test_plain_backend_runs_the_model_layers_surface(fields):
 
 @pytest.mark.parametrize("fields,named", [
     (dict(delivery="urn3", n=4097, f=1365), "n=4097"),
-    (dict(protocol="benor", adversary="byzantine", f=3, delivery="keys"),
-     "Ben-Or's Byzantine pairing"),
-], ids=["urn3", "benor-byzantine-keys"])
+    (dict(delivery="keys", n=4097, f=1365), "n=4097"),
+], ids=["urn3", "keys"])
 def test_plain_backend_refuses_the_rest_by_name(fields, named):
-    """urn3 runs on the plain path up to its law's ceiling, n = 4096; past it
-    (a config validate refuses too) and under Ben-Or's Byzantine pairing
-    with keys the plain backend refuses by name."""
+    """The full-mesh laws run on the plain path up to their ceiling,
+    n = 4096; past it (a config validate refuses too) the plain backend
+    refuses by name."""
     cfg = SimConfig(**{**dict(protocol="bracha", n=16, f=5, instances=4), **fields})
     with pytest.raises(PlainUnsupported, match=named):
         get_backend("torch", device="cpu").check_supported(cfg)
-    if cfg.n <= 4096:
-        with pytest.raises(PlainUnsupported, match=named):
-            get_backend("torch", device="cpu").run(cfg.validate())
+    with pytest.raises(ValueError, match="full-mesh ceiling"):
+        cfg.validate()
 
 
 def test_cli_runs_a_fault_schedule_on_the_cpu(capsys):

@@ -1,16 +1,18 @@
-"""The fused round (ops/fused_round.py) on its new surface: the deliveries urn3
-and committee, and the packing laws v2 and v3 past n = 1024. Tolerance 0
-throughout: every output is an integer drawn from one counter-based PRF.
+"""The fused round (ops/fused_round.py) on its new surface: the deliveries urn,
+urn3 and committee, and the packing laws v2 and v3 past n = 1024. Tolerance
+0 throughout: every output is an integer drawn from one counter-based PRF.
 
 - The plain round driver against the reference's fused TPU kernel in Pallas
   interpret mode, on the rows of artifacts/fused_r20.json
-  (tests/test_pallas_round.py::GATED_GRID) that use urn2, urn3 or committee.
+  (tests/test_pallas_round.py::GATED_GRID) that use urn, urn2, urn3 or
+  committee; the host build of the wide kernel's loop against the same
+  kernel on the two urn rows.
 - The host build of the wide kernel's round loop (csrc/fused_round_wide.cuh
   behind csrc/fused_round_wide_*_host.cpp) against the plain driver on a
-  grid: urn3 and committee × both protocols × every static adversary ×
-  every §9 fault schedule, at n in each layout (one replica per thread for
-  n ≤ 1024, registers for n ≤ 4096, the scratch plane past that), and urn2
-  at n = 1500.
+  grid: urn, urn3 and committee × both protocols × every static adversary
+  × every §9 fault schedule, at n in each layout (one replica per thread
+  for n ≤ 1024, registers for n ≤ 4096, the scratch plane past that), and
+  urn2 at n = 1500.
 - The kernel's surface: what it takes, the layout and library each config
   goes to, and what it refuses by name.
 
@@ -49,6 +51,15 @@ FUSED_R20_ROWS = [
     SimConfig(protocol="benor", n=64, f=2, instances=6, adversary="byzantine",
               coin="shared", init="random", seed=3, round_cap=48, delivery="committee"),
 ]
+# Its two rows under the §4b urn law.
+FUSED_R20_URN_ROWS = [
+    SimConfig(protocol="benor", n=8, f=1, instances=12, adversary="crash", coin="shared",
+              init="random", seed=0, round_cap=32, delivery="urn"),
+    SimConfig(protocol="benor", n=12, f=2, instances=8, adversary="adaptive_min",
+              coin="shared", init="random", seed=0, round_cap=48, delivery="urn",
+              faults="partition"),
+]
+FUSED_R20_ROWS += FUSED_R20_URN_ROWS
 
 
 @pytest.mark.parametrize("cfg", FUSED_R20_ROWS,
@@ -108,7 +119,7 @@ def _f(law, protocol, n, adversary):
 
 # (delivery law, n): each layout of each law.
 LAW_SIZES = [("urn3", 13), ("urn3", 1500), ("committee", 64), ("committee", 1500),
-             ("committee", 5000), ("urn2", 1500)]
+             ("committee", 5000), ("urn2", 1500), ("urn", 13), ("urn", 1500)]
 HOST_CASES = [(law, n, p, a, k) for law, n in LAW_SIZES for p in ("bracha", "benor")
               for a in ADVERSARIES for k in FAULTS]
 
@@ -120,7 +131,7 @@ def test_host_round_loop_matches_plain_driver(hosts, law, n, protocol, adversary
     kernel's loop, at an n of each layout, against the plain driver; the
     small sizes with a round cap the local coin reaches, so capped instances
     occur, and every init law in turn."""
-    if law == "urn3" and protocol == "benor" and n < 100:
+    if law in ("urn", "urn3") and protocol == "benor" and n < 100:
         n = 16
     i = ADVERSARIES.index(adversary) + FAULTS.index(faults)
     small = n < 100
@@ -153,6 +164,8 @@ def test_host_round_loop_at_committee_point_widths(hosts):
     (dict(n=1025, f=341, delivery="urn2"), "fused_round_urn2_r4", 4),
     (dict(n=1024, f=341, delivery="urn3"), "fused_round_urn3_r1", 1),
     (dict(n=4096, f=1365, delivery="urn3"), "fused_round_urn3_r4", 4),
+    (dict(n=1024, f=341, delivery="urn"), "fused_round_urn_r1", 1),
+    (dict(n=4096, f=1365, delivery="urn"), "fused_round_urn_r4", 4),
     (dict(n=64, f=12, delivery="committee"), "fused_round_committee_r1", 1),
     (dict(n=2048, f=409, delivery="committee"), "fused_round_committee_r4", 4),
     (dict(n=4097, f=819, delivery="committee", instances=4096), "fused_round_committee_r0", 0),
@@ -169,13 +182,39 @@ def test_each_config_goes_to_its_layout_and_library(fields, library, layout):
 
 
 def test_urn_and_keys_raise_fused_unsupported_naming_where_they_run():
-    for law, kernel in (("urn", "csrc/urn_step.cu"), ("keys", "csrc/keys_step.cu")):
-        cfg = SimConfig(protocol="bracha", n=16, f=5, instances=4, delivery=law).validate()
-        with pytest.raises(FusedUnsupported) as e:
-            fused_round.check_fused_supported(cfg)
-        assert f"delivery={law!r}" in str(e.value) and kernel in str(e.value)
-        with pytest.raises(FusedUnsupported):
-            fused_round.run_chunk(cfg, torch.zeros(1, dtype=torch.int32))
+    """keys, the one law off the kernel's surface, raises by name and names
+    the per-step kernel that runs it; urn is on the surface, and a CPU
+    tensor runs its plain version."""
+    cfg = SimConfig(protocol="bracha", n=16, f=5, instances=4, delivery="keys").validate()
+    with pytest.raises(FusedUnsupported) as e:
+        fused_round.check_fused_supported(cfg)
+    assert "delivery='keys'" in str(e.value) and "csrc/keys_step.cu" in str(e.value)
+    with pytest.raises(FusedUnsupported):
+        fused_round.run_chunk(cfg, torch.zeros(1, dtype=torch.int32))
+    assert set(fused_round.SUPPORTED["delivery"]) | {"keys"} == set(
+        ("keys", "urn", "urn2", "urn3", "committee"))
+    cfg = dataclasses.replace(cfg, delivery="urn").validate()
+    fused_round.check_fused_supported(cfg)
+    ids = torch.arange(4, dtype=torch.int32)
+    got, want = fused_round.run_chunk(cfg, ids), fused_round.run_chunk_plain(cfg, ids)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("cfg", FUSED_R20_URN_ROWS,
+                         ids=[f"{c.protocol}-n{c.n}-{c.adversary}-f{c.faults}"
+                              for c in FUSED_R20_URN_ROWS])
+def test_host_round_loop_matches_reference_fused_kernel_under_urn(hosts, cfg,
+                                                                  pallas_interpret):
+    """The host build of the wide kernel's loop under §4b urn against the
+    reference's fused TPU kernel in Pallas interpret mode, on the two urn rows
+    of artifacts/fused_r20.json."""
+    assert pallas_interpret, "the reference kernel runs in interpret mode here"
+    cfg = cfg.validate()
+    ids = np.arange(cfg.instances, dtype=np.uint32)
+    want = pallas_round.run_chunk(_ref(cfg), ids, interpret=True)
+    rounds, decision = host_run(hosts, cfg, ids)
+    np.testing.assert_array_equal(rounds, np.asarray(want[0]))
+    np.testing.assert_array_equal(decision, np.asarray(want[1]))
 
 
 def test_n_beyond_its_law_raises_fused_unsupported():
@@ -198,12 +237,11 @@ def test_backend_takes_fused_for_every_law_of_its_surface():
     assert backend.kernel == "plain"
     card = TorchBackend.__new__(TorchBackend)
     card.kernel, card.device = None, torch.device("cuda")
-    for law in ("urn2", "urn3", "committee"):
+    for law in ("urn", "urn2", "urn3", "committee"):
         cfg = SimConfig(protocol="bracha", n=64, f=12, instances=4, delivery=law).validate()
         assert card.kernel_for(cfg) == "fused"
-    for law in ("keys", "urn"):
-        cfg = SimConfig(protocol="bracha", n=64, f=12, instances=4, delivery=law).validate()
-        assert card.kernel_for(cfg) == "step"
+    cfg = SimConfig(protocol="bracha", n=64, f=12, instances=4, delivery="keys").validate()
+    assert card.kernel_for(cfg) == "step"
     big = committee_point(131_072)
     assert card.chunk_size(big) == KERNEL_MAX_PAIRS // 131_072 == 2048
     assert card.chunk_size(committee_point(8192)) == prf.V3_MAX_INSTANCES
@@ -249,6 +287,15 @@ def test_plain_work_counters_of_the_new_laws():
         segments = 4 if adversary == "adaptive" else 2
         assert stats["cheap_segments"] == segments * drops
         assert "chain_trips" not in stats
+    # Under urn: a PRF word per receiver with a drop, and the draws that
+    # need a random word, all D under one stratum, fewer under two.
+    for adversary in ("none", "adaptive"):
+        cfg = SimConfig(protocol="bracha", n=64, f=21, instances=16, adversary=adversary,
+                        delivery="urn", coin="shared").validate()
+        stats = {}
+        fused_round.run_chunk_plain(cfg, torch.arange(16, dtype=torch.int32), stats=stats)
+        assert 0 < stats["urn_words"] <= stats["urn_random_draws"] <= stats["urn_draws"]
+        assert (stats["urn_random_draws"] == stats["urn_draws"]) == (adversary == "none")
 
 
 @pytest.mark.parametrize("pack", [1, 2, 3])

@@ -220,18 +220,18 @@ def test_plain_driver_counts_the_work_of_running_instances():
 
 
 UNSUPPORTED = [
-    (dict(delivery="urn"), "delivery='urn'"),
+    (dict(delivery="urn", n=4097, f=1365), "delivery='urn'"),
     (dict(delivery="urn3", n=4097, f=1365), "delivery='urn3'"),
     (dict(delivery="keys"), "delivery='keys'"),
-    (dict(n=1025, f=341, instances=64, delivery="urn"), "n=1025"),
+    (dict(n=1025, f=341, instances=64, delivery="keys"), "n=1025"),
 ]
 
 
 @pytest.mark.parametrize("fields,named", UNSUPPORTED, ids=[u[1] for u in UNSUPPORTED])
 def test_unsupported_surface_raises_fused_unsupported_by_name(fields, named):
-    """The §4b urn law and the spec-§4 keys law at any n (they run on the
-    per-step kernels), and urn3 past its law's ceiling n = 4096 (a config
-    validate refuses too), are refused by name."""
+    """The spec-§4 keys law at any n (it runs on the per-step kernel), and
+    urn and urn3 past their law's ceiling n = 4096 (a config validate
+    refuses too), are refused by name."""
     base = dict(protocol="bracha", n=16, f=5, instances=64, delivery="urn2")
     cfg = SimConfig(**{**base, **fields})
     calls = [lambda: fused_round.check_fused_supported(cfg),
@@ -250,26 +250,31 @@ def test_unsupported_surface_raises_fused_unsupported_by_name(fields, named):
             call()
         assert named in str(e.value)
         assert ("surface is protocol in ('benor', 'bracha'), delivery in ('urn2', 'urn3', "
-                "'committee'), adversary in ('none', 'crash', 'byzantine', 'adaptive', "
+                "'committee', 'urn'), adversary in ('none', 'crash', 'byzantine', 'adaptive', "
                 "'adaptive_min')" in str(e.value))
 
 
 @pytest.mark.parametrize("protocol", ["benor", "bracha"])
 def test_every_static_adversary_is_on_the_surface(protocol):
     """Both protocols under every static adversary pass the gate, with every
-    §9 fault schedule, under urn2, urn3 and committee and past n=1024; the
-    same configs under the §4b urn law are refused by name at any n."""
+    §9 fault schedule, under urn2, urn3, committee and §4b urn and past
+    n=1024; the same configs under the keys law are refused by name at any
+    n."""
     for adversary in fused_round.SUPPORTED["adversary"]:
         cfg = SimConfig(protocol=protocol, n=16, f=3, instances=64, adversary=adversary,
                         delivery="urn2").validate()
         fused_round.check_fused_supported(cfg)
         for kind in ("recover", "partition", "omission"):
             fused_round.check_fused_supported(dataclasses.replace(cfg, faults=kind))
-        for law in ("urn3", "committee"):
+        for law in ("urn3", "committee", "urn"):
             fused_round.check_fused_supported(dataclasses.replace(cfg, delivery=law))
+            fused_round.check_fused_supported(dataclasses.replace(cfg, delivery=law,
+                                                                  faults="partition"))
         fused_round.check_fused_supported(dataclasses.replace(cfg, n=1025, f=204))
-        for other, named in ((dict(delivery="urn"), "delivery='urn'"),
-                             (dict(n=1025, f=204, delivery="urn"), "n=1025")):
+        fused_round.check_fused_supported(dataclasses.replace(cfg, n=1025, f=204,
+                                                              delivery="urn"))
+        for other, named in ((dict(delivery="keys"), "delivery='keys'"),
+                             (dict(n=1025, f=204, delivery="keys"), "n=1025")):
             with pytest.raises(FusedUnsupported, match=named):
                 fused_round.check_fused_supported(dataclasses.replace(cfg, **other))
 

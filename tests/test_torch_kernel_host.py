@@ -24,7 +24,7 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
 from byzantinerandomizedconsensus_tpu_torch.models import adversaries
 from byzantinerandomizedconsensus_tpu_torch.ops import (
-    _build, fused_round, keys_step, masks, prf, urn, urn2, urn_step)
+    _build, _step, fused_round, keys_step, masks, prf, urn, urn2, urn_step)
 
 # chip_smoke.py holds the keys bound's count, crossing_pairs.
 _SPEC = importlib.util.spec_from_file_location(
@@ -329,26 +329,66 @@ def _step_host(name):
     return lib, fn
 
 
-STEP_HOST_CASES = [(n, (n - 1) // 3, adv) for n in (4, 10, 64, 128, 200, 512)
-                   for adv in ("none", "adaptive", "adaptive_min")]
+# (protocol, n, f, adversary): Bracha under the adaptive family at widths
+# that cross warps and tiles, both protocols under crash and the Byzantine
+# pairings, Ben-Or under adaptive, and packing law v2 at n = 1100.
+STEP_HOST_CASES = ([("bracha", n, (n - 1) // 3, adv) for n in (4, 10, 64, 128, 200, 512)
+                    for adv in ("none", "adaptive", "adaptive_min")]
+                   + [("benor", 64, 21, "crash"), ("benor", 64, 12, "byzantine"),
+                      ("benor", 64, 12, "adaptive"), ("bracha", 64, 21, "crash"),
+                      ("bracha", 64, 21, "byzantine"), ("benor", 1100, 219, "byzantine"),
+                      ("bracha", 1100, 366, "adaptive_min")])
 
 
-@pytest.mark.parametrize("n,f,adversary", STEP_HOST_CASES,
-                         ids=[f"n{c[0]}-{c[2]}" for c in STEP_HOST_CASES])
+def _reference_counts(name, cfg, key, ids, rnd, t, values, silent, faulty, honest):
+    """The reference's counts of one step on these planes: its masks and
+    tally (with its own per-receiver values under Ben-Or's pairing) or its
+    urn."""
+    from byzantinerandomizedconsensus_tpu import config as ref_config
+    from byzantinerandomizedconsensus_tpu.models.adversaries import (
+        AdversaryModel as RefAdversaryModel)
+    from byzantinerandomizedconsensus_tpu.ops import masks as ref_masks
+    from byzantinerandomizedconsensus_tpu.ops import tally as ref_tally
+    from byzantinerandomizedconsensus_tpu.ops import urn as ref_urn
+
+    import dataclasses
+
+    rcfg = ref_config.SimConfig(**dataclasses.asdict(cfg))
+    rids = ids.astype(np.uint32)
+    if name == "urn_step":
+        return ref_urn.counts_fn(rcfg, key, rids, rnd, t, values, silent, faulty, honest,
+                                 xp=np)
+    vals = values
+    if adversaries.two_faced(cfg):
+        vals = RefAdversaryModel(rcfg).inject(key, rids, rnd, t, honest,
+                                              {"faulty": faulty}, xp=np)[0]
+    bias = adversaries.scheduling_bias(cfg, torch.as_tensor(values),
+                                       torch.as_tensor(faulty)).numpy()
+    mask = ref_masks.delivery_mask(rcfg, key, rids, rnd, t, silent, bias, xp=np)
+    return ref_tally.tally01(mask, vals, xp=np)
+
+
+@pytest.mark.parametrize("protocol,n,f,adversary", STEP_HOST_CASES,
+                         ids=[f"{'benor-' * (c[0] == 'benor')}n{c[1]}-{c[3]}"
+                              for c in STEP_HOST_CASES])
 @pytest.mark.parametrize("name", ["keys_step", "urn_step"])
-def test_step_kernel_host_run_matches_plain(name, n, f, adversary):
+def test_step_kernel_host_run_matches_plain(name, protocol, n, f, adversary):
     """One step of the kernel's per-thread arithmetic, every (instance,
     receiver), on random planes (faulty senders on the wire with a value
-    of their own), against the plain version."""
+    of their own; under Ben-Or's Byzantine pairing the honest values, whose
+    equivocation the kernel draws), against the plain version and the
+    reference."""
     _, fn = _step_host(name)
-    cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, adversary=adversary,
+    cfg = SimConfig(protocol=protocol, n=n, f=f, instances=60_000, adversary=adversary,
                     delivery={"keys_step": "keys", "urn_step": "urn"}[name]).validate()
-    rng = np.random.default_rng(n)
+    rng = np.random.default_rng(n + f)
     B = 3 if n <= 200 else 2
     ids = rng.choice(cfg.instances, B, replace=False).astype(np.int32)
     honest = rng.integers(0, 3, (B, n)).astype(np.uint8)
     faulty = rng.random((B, n)) < 0.3
     values = np.where(faulty, rng.integers(0, 2, (B, 1)), honest).astype(np.uint8)
+    if adversaries.two_faced(cfg):
+        values = honest
     silent = rng.random((B, n)) < 0.15
     k0, k1 = 0x01234567, 0x89ABCDEF
     for rnd, t in ((0, 0), (5, 1), (300, 2)):
@@ -357,7 +397,7 @@ def test_step_kernel_host_run_matches_plain(name, n, f, adversary):
         sil8, fa8 = silent.astype(np.uint8), faulty.astype(np.uint8)
         fn(ids.ctypes.data, values.ctypes.data, sil8.ctypes.data, fa8.ctypes.data,
            c0.ctypes.data, c1.ctypes.data, B, n, f, rnd, t,
-           STEP_ADVERSARY[adversary], k0, k1)
+           _step.adversary_code(cfg), k0, k1)
         planes = [torch.as_tensor(x) for x in (values, silent, faulty)]
         if name == "keys_step":
             w0, w1 = keys_step.step_counts_plain(cfg, (k0, k1), torch.as_tensor(ids),
@@ -367,6 +407,10 @@ def test_step_kernel_host_run_matches_plain(name, n, f, adversary):
                                                 rnd, t, *planes, torch.as_tensor(honest))
         np.testing.assert_array_equal(c0, w0.numpy(), err_msg=f"round {rnd} step {t}")
         np.testing.assert_array_equal(c1, w1.numpy(), err_msg=f"round {rnd} step {t}")
+        r0, r1 = _reference_counts(name, cfg, (k0, k1), ids, rnd, t, values, silent,
+                                   faulty, honest)
+        np.testing.assert_array_equal(c0, r0, err_msg=f"reference, round {rnd} step {t}")
+        np.testing.assert_array_equal(c1, r1, err_msg=f"reference, round {rnd} step {t}")
 
 
 def test_combined_key_matches_plain_keys():
@@ -393,6 +437,25 @@ def test_combined_key_matches_plain_keys():
                 got = fn(3, 4, 40, 9, 2, code, inst, r, s_, v,
                          int(silent[0, s_]) if s_ < 40 else 0, minority)
                 assert got == (int(want[r, s_]) if s_ < 40 else 0xFFFFFFFF), (r, s_)
+
+
+@pytest.mark.parametrize("n", [40, 1100])
+def test_equivocation_value_matches_plain(n):
+    """The value a faulty sender shows each receiver under Ben-Or's
+    Byzantine pairing (keys_step.cuh::equivocation_value), packing laws v1
+    and v2, against models/adversaries.py::equivocation_values."""
+    lib, _ = _step_host("keys_step")
+    fn = lib.brc_equivocation_value
+    fn.argtypes = [ctypes.c_uint32] * 2 + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3
+    fn.restype = ctypes.c_uint32
+    cfg = SimConfig(protocol="benor", n=n, f=n // 6, instances=1000, adversary="byzantine",
+                    delivery="keys").validate()
+    want = adversaries.equivocation_values(
+        cfg, (3, 4), torch.tensor([777]), 9, 1, torch.zeros((1, n), dtype=torch.uint8),
+        torch.ones((1, n), dtype=torch.bool))[0]
+    rng = np.random.default_rng(n)
+    for r, s_ in rng.integers(0, n, (200, 2)):
+        assert fn(3, 4, n, 9, 1, 777, int(r), int(s_)) == int(want[r, s_]), (r, s_)
 
 
 def _deliver_row_fn():

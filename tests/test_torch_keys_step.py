@@ -1,10 +1,11 @@
 """The keys step (ops/keys_step.py) and the spec-§4 keys law of the port
 (ops/masks.py, ops/tally.py) against the reference: per broadcast step
-through the real round bodies, against both the reference's XLA masks+tally
-path and its Pallas kernel (ops/pallas_tally.py) in interpret mode; the
-selection against a full sort; the driver against ``get_backend("jax")``;
-the keys goldens; config 5 at n=512 against the committed sweep results;
-the surface gate."""
+through the real round bodies of both protocols, against both the
+reference's XLA masks+tally path and its Pallas kernel (ops/pallas_tally.py)
+in interpret mode; the selection against a full sort; the driver against
+``get_backend("jax")``, and Ben-Or's Byzantine pairing against the numpy and
+jax backends; the keys goldens; config 5 at n=512 against the committed
+sweep results; the surface gate."""
 
 import dataclasses
 import functools
@@ -17,6 +18,7 @@ import torch
 
 from byzantinerandomizedconsensus_tpu import config as ref_config
 from byzantinerandomizedconsensus_tpu.backends.base import get_backend as ref_get_backend
+from byzantinerandomizedconsensus_tpu.models import benor as ref_benor
 from byzantinerandomizedconsensus_tpu.models import bracha as ref_bracha
 from byzantinerandomizedconsensus_tpu.models import state as ref_state
 from byzantinerandomizedconsensus_tpu.models.adversaries import (
@@ -24,7 +26,7 @@ from byzantinerandomizedconsensus_tpu.models.adversaries import (
 from byzantinerandomizedconsensus_tpu.ops import masks as ref_masks
 from byzantinerandomizedconsensus_tpu_torch import get_backend
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, sweep_point
-from byzantinerandomizedconsensus_tpu_torch.models import bracha, delivery
+from byzantinerandomizedconsensus_tpu_torch.models import benor, bracha, delivery
 from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import AdversaryModel
 from byzantinerandomizedconsensus_tpu_torch.ops import _step, keys_step, masks, tally
@@ -36,8 +38,9 @@ def _ref(cfg):
 
 
 def ref_rounds(cfg, counts_fn, n_rounds):
-    """The reference round body run eagerly with ``xp=jnp`` (the template of
-    tests/test_pallas_step.py); the state after each round."""
+    """The reference round body of ``cfg.protocol`` run eagerly with
+    ``xp=jnp`` (the template of tests/test_pallas_step.py); the state after
+    each round."""
     rcfg = _ref(cfg)
     ids = jnp.arange(cfg.instances, dtype=jnp.uint32)
     adv = RefAdversaryModel(rcfg)
@@ -45,8 +48,8 @@ def ref_rounds(cfg, counts_fn, n_rounds):
     st = ref_state.init_state(rcfg, cfg.seed, ids, xp=jnp)
     out = []
     for r in range(n_rounds):
-        st = ref_bracha.round_body(rcfg, cfg.seed, ids, r, st, adv, setup, xp=jnp,
-                                   counts_fn=counts_fn)
+        body = ref_benor.round_body if cfg.protocol == "benor" else ref_bracha.round_body
+        st = body(rcfg, cfg.seed, ids, r, st, adv, setup, xp=jnp, counts_fn=counts_fn)
         out.append({k: np.asarray(v) for k, v in st.items()})
     return out
 
@@ -58,7 +61,8 @@ def port_rounds(cfg, counts_fn, n_rounds):
     st = state_mod.init_state(cfg, cfg.seed, ids)
     out = []
     for r in range(n_rounds):
-        st = bracha.round_body(cfg, cfg.seed, ids, r, st, adv, setup, counts_fn=counts_fn)
+        body = benor.round_body if cfg.protocol == "benor" else bracha.round_body
+        st = body(cfg, cfg.seed, ids, r, st, adv, setup, counts_fn=counts_fn)
         out.append({k: v.numpy() for k, v in st.items()})
     return out
 
@@ -72,8 +76,11 @@ def assert_rounds_equal(got, want, what):
 # The bracha adaptive row of tests/test_pallas_step.py::KEYS_STEP (two
 # rounds, so decided replicas and validation silences reach the second), and
 # the tile-boundary shapes under the other two adversaries: n == the TPU lane
-# width (128), and n straddling two receiver tiles (200). Interpret-mode
-# Pallas costs seconds per (config, step) to trace, so the rows are few.
+# width (128), and n straddling two receiver tiles (200); Ben-Or under crash,
+# its Byzantine pairing (the per-receiver equivocation) and adaptive, Bracha
+# under crash and its Byzantine pairing, one round each; and packing law v2
+# at n=1100 under Ben-Or's pairing. Interpret-mode Pallas costs seconds per
+# (config, step) to trace, so the rows are few.
 KEYS_STEP = [
     # (cfg, n_rounds)
     (SimConfig(protocol="bracha", n=16, f=5, instances=6, adversary="adaptive",
@@ -82,11 +89,24 @@ KEYS_STEP = [
                coin="local", init="split", round_cap=4, seed=2, delivery="keys"), 1),
     (SimConfig(protocol="bracha", n=200, f=66, instances=4, adversary="adaptive_min",
                coin="shared", round_cap=4, seed=2, delivery="keys"), 1),
+    (SimConfig(protocol="benor", n=16, f=7, instances=6, adversary="crash",
+               coin="local", round_cap=8, seed=21, delivery="keys"), 1),
+    (SimConfig(protocol="benor", n=16, f=3, instances=6, adversary="byzantine",
+               coin="local", round_cap=8, seed=22, delivery="keys"), 1),
+    (SimConfig(protocol="benor", n=21, f=4, instances=6, adversary="adaptive",
+               coin="shared", round_cap=8, seed=23, delivery="keys"), 1),
+    (SimConfig(protocol="bracha", n=16, f=5, instances=6, adversary="crash",
+               coin="shared", round_cap=8, seed=24, delivery="keys"), 1),
+    (SimConfig(protocol="bracha", n=16, f=5, instances=6, adversary="byzantine",
+               coin="local", round_cap=8, seed=25, delivery="keys"), 1),
+    (SimConfig(protocol="benor", n=1100, f=219, instances=2, adversary="byzantine",
+               coin="shared", round_cap=4, seed=26, delivery="keys"), 1),
 ]
 
 
 @pytest.mark.parametrize("cfg,n_rounds", KEYS_STEP,
-                         ids=[f"n{c.n}f{c.f}-{c.adversary}" for c, _ in KEYS_STEP])
+                         ids=[f"{'benor-' * (c.protocol == 'benor')}n{c.n}f{c.f}-{c.adversary}"
+                              for c, _ in KEYS_STEP])
 def test_keys_steps_match_reference_xla_and_pallas(cfg, n_rounds, pallas_interpret):
     """The port's keys hook (the plain version on the CPU) and its default
     keys path, through the port's round body, equal the reference's XLA
@@ -246,6 +266,28 @@ def test_cpu_backend_matches_reference_backend(cfg):
     np.testing.assert_array_equal(got.decision, want.decision)
 
 
+BENOR_BYZANTINE_KEYS = [
+    SimConfig(protocol="benor", n=16, f=3, instances=48, adversary="byzantine",
+              coin="local", round_cap=32, seed=4, delivery="keys"),
+    SimConfig(protocol="benor", n=11, f=2, instances=48, adversary="byzantine",
+              coin="shared", round_cap=32, seed=1, delivery="keys", faults="partition"),
+]
+
+
+@pytest.mark.parametrize("cfg", BENOR_BYZANTINE_KEYS, ids=["none", "partition"])
+def test_benor_byzantine_keys_matches_reference_numpy_and_xla(cfg):
+    """Ben-Or's Byzantine pairing under the keys law (the per-receiver
+    equivocation, spec §6.3) through the port's plain path, per instance
+    against the reference's numpy backend and its XLA path."""
+    cfg = cfg.validate()
+    got = get_backend("torch", device="cpu").run(cfg)
+    for backend in ("numpy", "jax"):
+        want = ref_get_backend(backend).run(_ref(cfg))
+        np.testing.assert_array_equal(got.rounds, want.rounds, err_msg=backend)
+        np.testing.assert_array_equal(got.decision, want.decision, err_msg=backend)
+    assert (got.decision != 2).any()
+
+
 @pytest.mark.parametrize("name,fields", [
     ("bracha_adaptive", dict(adversary="adaptive", seed=3)),
     ("bracha_adaptive_min", dict(adversary="adaptive_min", seed=7)),
@@ -279,13 +321,11 @@ def test_config5_n512_matches_the_committed_sweep_results():
 
 
 UNSUPPORTED = [
-    (dict(protocol="benor", n=7, f=1), "protocol='benor'"),
-    (dict(adversary="crash"), "adversary='crash'"),
-    (dict(adversary="byzantine"), "adversary='byzantine'"),
     (dict(faults="recover"), "faults='recover'"),
     (dict(delivery="urn2"), "delivery='urn2'"),
     (dict(delivery="urn3"), "delivery='urn3'"),
-    (dict(n=1025, f=341), "n=1025"),
+    (dict(delivery="committee", n=64, f=12), "delivery='committee'"),
+    (dict(delivery="committee", n=4097, f=819), "n=4097"),
 ]
 
 
@@ -300,4 +340,4 @@ def test_unsupported_surface_raises_step_unsupported_by_name(fields, named):
         with pytest.raises(StepUnsupported) as e:
             call()
         assert named in str(e.value)
-        assert "surface is protocol in ('bracha',)" in str(e.value)
+        assert "surface is protocol in ('benor', 'bracha')" in str(e.value)

@@ -1,12 +1,13 @@
 """The urn step (ops/urn_step.py) and the spec-§4b urn law of the port
 (ops/urn.py) against the reference: per broadcast step through the real
-round bodies, against both the reference's XLA urn path and its Pallas
+round bodies of both protocols, against both the reference's XLA urn path and its Pallas
 kernel (ops/pallas_urn.py) in interpret mode; the class state, strata and
 draw count; the driver against ``get_backend("jax")``; the urn goldens;
 config 5 at n=512 against the committed sweep results; the surface gate."""
 
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -15,14 +16,18 @@ from test_torch_keys_step import _ref, assert_rounds_equal, port_rounds, ref_rou
 
 from byzantinerandomizedconsensus_tpu.backends.base import get_backend as ref_get_backend
 from byzantinerandomizedconsensus_tpu.ops import urn as ref_urn
-from byzantinerandomizedconsensus_tpu_torch import get_backend
+from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+from byzantinerandomizedconsensus_tpu_torch.cli import decision_histogram, round_histogram
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, sweep_point
 from byzantinerandomizedconsensus_tpu_torch.ops import urn, urn_step
 from byzantinerandomizedconsensus_tpu_torch.ops._step import StepUnsupported
 
 # The bracha adaptive row of tests/test_pallas_step.py::URN_STEP (two
 # rounds), and the tile-boundary shapes n=128 and n=200 under the other two
-# adversaries.
+# adversaries; Ben-Or under crash, its Byzantine pairing (the two-faced class
+# rows) and adaptive, Bracha under crash and its Byzantine pairing, one round
+# each; and packing law v2 at n=1100 under Ben-Or's pairing (f=20: the
+# reference's interpret-mode kernel unrolls f draws, 85 s at f=219).
 URN_STEP = [
     (SimConfig(protocol="bracha", n=16, f=5, instances=8, adversary="adaptive",
                coin="shared", round_cap=8, seed=5, delivery="urn"), 2),
@@ -30,11 +35,24 @@ URN_STEP = [
                coin="local", round_cap=4, seed=3, delivery="urn"), 1),
     (SimConfig(protocol="bracha", n=200, f=66, instances=4, adversary="none",
                coin="shared", init="all0", round_cap=4, seed=4, delivery="urn"), 1),
+    (SimConfig(protocol="benor", n=16, f=7, instances=8, adversary="crash",
+               coin="local", round_cap=8, seed=31, delivery="urn"), 1),
+    (SimConfig(protocol="benor", n=16, f=3, instances=8, adversary="byzantine",
+               coin="local", round_cap=8, seed=32, delivery="urn"), 1),
+    (SimConfig(protocol="benor", n=21, f=4, instances=8, adversary="adaptive",
+               coin="shared", round_cap=8, seed=33, delivery="urn"), 1),
+    (SimConfig(protocol="bracha", n=16, f=5, instances=8, adversary="crash",
+               coin="shared", round_cap=8, seed=34, delivery="urn"), 1),
+    (SimConfig(protocol="bracha", n=16, f=5, instances=8, adversary="byzantine",
+               coin="local", round_cap=8, seed=35, delivery="urn"), 1),
+    (SimConfig(protocol="benor", n=1100, f=20, instances=2, adversary="byzantine",
+               coin="shared", round_cap=4, seed=36, delivery="urn"), 1),
 ]
 
 
 @pytest.mark.parametrize("cfg,n_rounds", URN_STEP,
-                         ids=[f"n{c.n}f{c.f}-{c.adversary}" for c, _ in URN_STEP])
+                         ids=[f"{'benor-' * (c.protocol == 'benor')}n{c.n}f{c.f}-{c.adversary}"
+                              for c, _ in URN_STEP])
 def test_urn_steps_match_reference_xla_and_pallas(cfg, n_rounds, pallas_interpret):
     """The port's urn hook (the plain version on the CPU) and its default urn
     path, through the port's round body, equal the reference's XLA urn path
@@ -141,13 +159,26 @@ def test_config5_n512_matches_the_committed_sweep_results():
     np.testing.assert_array_equal(res.decision, z["decision"][pick])
 
 
+@pytest.mark.parametrize("name", ["config1", "config3"])
+def test_shipped_configs_under_urn_equal_the_reference_product_run(name):
+    """config1 and config3 as shipped under §4b urn through the plain
+    backend: the decision and round histograms and the mean rounds of the
+    decided instances of artifacts/product_r4.json (the reference's run)."""
+    want = json.loads(open("artifacts/product_r4.json").read())[name]
+    res = get_backend("torch", device="cpu").run(preset(name, delivery="urn"))
+    rh = round_histogram(res).tolist()
+    assert decision_histogram(res).tolist() == want["decision_histogram"]
+    assert rh == want["round_histogram"][:len(rh)] and not any(want["round_histogram"][len(rh):])
+    assert float(res.rounds[res.decision != 2].mean()) == want["mean_rounds_decided"]
+
+
 @pytest.mark.parametrize("fields,named", [
-    (dict(protocol="benor", n=7, f=1), "protocol='benor'"),
-    (dict(adversary="crash"), "adversary='crash'"),
-    (dict(adversary="byzantine"), "adversary='byzantine'"),
     (dict(faults="omission"), "faults='omission'"),
-    (dict(n=1536, f=511), "n=1536"),
-], ids=["benor", "crash", "byzantine", "faults", "n1536"])
+    (dict(delivery="urn2"), "delivery='urn2'"),
+    (dict(delivery="urn3"), "delivery='urn3'"),
+    (dict(delivery="committee", n=64, f=12), "delivery='committee'"),
+    (dict(delivery="committee", n=4097, f=819), "n=4097"),
+], ids=["faults", "urn2", "urn3", "committee", "n4097"])
 def test_unsupported_surface_raises_step_unsupported_by_name(fields, named):
     cfg = SimConfig(**{**dict(protocol="bracha", n=16, f=5, instances=64,
                               delivery="urn"), **fields}).validate()

@@ -25,14 +25,14 @@ from test_torch_keys_step import _ref
 
 from byzantinerandomizedconsensus_tpu.ops import urn as ref_urn
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
-from byzantinerandomizedconsensus_tpu_torch.ops import _build, urn
+from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
+from byzantinerandomizedconsensus_tpu_torch.ops import _build, _step, urn
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(chip_smoke)
 
-ADVERSARY = {"none": 0, "adaptive": 1, "adaptive_min": 2}
 KEY = (0x01234567, 0x89ABCDEF)
 
 
@@ -47,6 +47,8 @@ def host():
     lib.brc_host_urn_step.restype = ctypes.c_longlong
     lib.brc_urn_scaled.argtypes = [ctypes.c_uint32] * 2
     lib.brc_urn_scaled.restype = ctypes.c_uint32
+    lib.brc_urn_scaled_packed.argtypes = [ctypes.c_int] + [ctypes.c_uint32] * 2
+    lib.brc_urn_scaled_packed.restype = ctypes.c_uint32
     lib.brc_sub_if_below.argtypes = [ctypes.c_uint32] * 3
     lib.brc_sub_if_below.restype = ctypes.c_uint32
     return lib
@@ -60,7 +62,7 @@ def host_step(host, cfg, ids, values, silent, faulty, rnd, t):
     planes = [np.ascontiguousarray(x, dtype=np.uint8) for x in (values, silent, faulty)]
     draws = host.brc_host_urn_step(ids.ctypes.data, *(x.ctypes.data for x in planes),
                                    c0.ctypes.data, c1.ctypes.data, B, n, cfg.f, rnd, t,
-                                   ADVERSARY[cfg.adversary], *KEY)
+                                   _step.adversary_code(cfg), *KEY)
     return c0, c1, draws
 
 
@@ -169,7 +171,8 @@ def test_host_rows_match_plain_and_reference(host, case, adversary, n, f, reache
                                    silent, faulty, honest, xp=np)
         np.testing.assert_array_equal(c0, r0, err_msg=f"{case} {rnd} {t} reference")
         np.testing.assert_array_equal(c1, r1, err_msg=f"{case} {rnd} {t} reference")
-        assert draws == chip_smoke.urn_draws(cfg, *planes)[0]
+        assert draws == chip_smoke.urn_draws(cfg, KEY, torch.as_tensor(ids), rnd, t,
+                                             *planes)[0]
 
 
 EDGE_S = [0, 1, 0x3FF, 0x400, 0x7FFFFFFF, 0x80000000, 0xFFFFFC00, 0xFFFFFFFF,
@@ -182,30 +185,39 @@ def test_scaled_pick_is_the_reference_range_reduction(host, s):
     its last shift (>> 22), with no wrap, and sub_if_below on it takes one
     from a count r carried as r << 22 exactly when the reference's index d
     is below r: for every urn size R of packing law v1 and counts r at the
-    edges of d."""
-    one = 1 << 22
-    u = (s ^ (s >> 16)) >> 10
-    for R in range(1024):
-        x = host.brc_urn_scaled(s, R)
-        assert x == u * R < 1 << 32, R
-        d = x >> 22
-        for r in sorted({0, 1, d, d + 1, R, 1023}):
-            want = r - 1 if d < r else r
-            assert host.brc_sub_if_below(x, r * one, one) == want * one, (R, r)
+    edges of d; and the same under law v2, ((s ^ s >> 16) >> 12) * R before
+    >> 20, for urn sizes up to 4095."""
+    for pack, (pre, post), sizes, top in ((1, (10, 22), range(1024), 1023),
+                                          (2, (12, 20), range(0, 4096, 7), 4095)):
+        one = 1 << post
+        u = (s ^ (s >> 16)) >> pre
+        for R in sizes:
+            x = host.brc_urn_scaled_packed(pack, s, R)
+            assert x == u * R < 1 << 32, (pack, R)
+            if pack == 1:
+                assert host.brc_urn_scaled(s, R) == x
+            d = x >> post
+            for r in sorted({0, 1, d, d + 1, R, top}):
+                want = r - 1 if d < r else r
+                assert host.brc_sub_if_below(x, r * one, one) == want * one, (pack, R, r)
 
 
-DRAW_CASES = [(n, (n - 1) // 3, adv) for n in (10, 64, 200)
-              for adv in ("none", "adaptive", "adaptive_min")]
+DRAW_CASES = ([("bracha", n, (n - 1) // 3, adv) for n in (10, 64, 200)
+               for adv in ("none", "adaptive", "adaptive_min")]
+              + [("benor", 64, 12, "byzantine"), ("benor", 1100, 219, "byzantine"),
+                 ("bracha", 1100, 366, "adaptive")])
 
 
-@pytest.mark.parametrize("n,f,adversary", DRAW_CASES,
-                         ids=[f"n{c[0]}-{c[2]}" for c in DRAW_CASES])
-def test_urn_draws_counts_the_kernels_draws(host, n, f, adversary):
+@pytest.mark.parametrize("protocol,n,f,adversary", DRAW_CASES,
+                         ids=[f"{'benor-' * (c[0] == 'benor')}n{c[1]}-{c[3]}"
+                              for c in DRAW_CASES])
+def test_urn_draws_counts_the_kernels_draws(host, protocol, n, f, adversary):
     """chip_smoke.py's urn_draws, the bound's count (min(D, B0) per receiver
     under two strata, D under one), equals the draws the host build of the
     kernel makes, on random planes (faulty senders on the wire with a value
-    of their own)."""
-    cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, adversary=adversary,
+    of their own; under Ben-Or's Byzantine pairing the honest values, whose
+    two class rows the kernel draws), under packing laws v1 and v2."""
+    cfg = SimConfig(protocol=protocol, n=n, f=f, instances=60_000, adversary=adversary,
                     delivery="urn").validate()
     rng = np.random.default_rng(5 * n)
     B = 4
@@ -214,9 +226,15 @@ def test_urn_draws_counts_the_kernels_draws(host, n, f, adversary):
         honest = rng.integers(0, 3, (B, n)).astype(np.uint8)
         faulty = rng.random((B, n)) < 0.3
         values = np.where(faulty, rng.integers(0, 2, (B, 1)), honest).astype(np.uint8)
+        if two_faced(cfg):
+            values = honest
         silent = rng.random((B, n)) < p_silent
-        _, _, draws = host_step(host, cfg, ids, values, silent, faulty, 2, 1)
-        want, words, drops = chip_smoke.urn_draws(
-            cfg, *(torch.as_tensor(x) for x in (values, silent, faulty, honest)))
+        c0, c1, draws = host_step(host, cfg, ids, values, silent, faulty, 2, 1)
+        planes = [torch.as_tensor(x) for x in (values, silent, faulty, honest)]
+        want, words, drops = chip_smoke.urn_draws(cfg, KEY, torch.as_tensor(ids), 2, 1,
+                                                  *planes)
+        w0, w1 = urn.counts_fn(cfg, KEY, torch.as_tensor(ids), 2, 1, *planes)
+        np.testing.assert_array_equal(c0, w0.numpy())
+        np.testing.assert_array_equal(c1, w1.numpy())
         assert draws == want, p_silent
         assert want <= drops and words <= B * n
