@@ -90,7 +90,9 @@ def register_backend(name: str, factory: Callable[..., SimulatorBackend]) -> Non
 
 def get_backend(name: str, **options) -> SimulatorBackend:
     """A new backend of the given name, built with ``options`` (e.g.
-    ``device="cpu"``)."""
-    if name not in _REGISTRY:
+    ``device="cpu"``); ``name:param`` passes ``param`` to the factory first
+    (``virtual:2x2``, ``torch_sharded:4``)."""
+    base, sep, param = name.partition(":")
+    if base not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[name](**options)
+    return _REGISTRY[base](param, **options) if sep else _REGISTRY[base](**options)

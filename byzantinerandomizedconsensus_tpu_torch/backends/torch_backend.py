@@ -39,7 +39,7 @@ from byzantinerandomizedconsensus_tpu_torch.ops import (
     _build, _step, fused_round, keys_step, prf, urn_step)
 
 KERNELS = ("fused", "step", "plain")
-_STEP_KERNELS = {"keys": ("keys_step", keys_step.counts_fn),
+STEP_KERNELS = {"keys": ("keys_step", keys_step.counts_fn),
                  "urn": ("urn_step", urn_step.counts_fn)}
 
 #: The surface of the plain path: what the model layer computes.
@@ -76,6 +76,24 @@ def check_plain_supported(cfg) -> None:
             f"kernel='plain' does not support {', '.join(problems)}; its "
             f"surface is {surface}, n <= {prf.V2_MAX_N} (committee: n <= "
             f"{prf.V3_MAX_N})")
+
+
+def kernel_chunk_size(cfg: SimConfig, kernel: str) -> int:
+    """Instances per call of ``kernel``. The kernels take a whole chunk of
+    the spec §2 instance field (4096 ids under v3), the fused kernel at most
+    :data:`KERNEL_MAX_PAIRS` (instance, replica) pairs; the plain driver
+    holds (B, n) int64 planes, so it is bounded by memory. (The plain keys
+    law builds its (B, n, n) int64 keys and the partition cut's (B, n, n)
+    bool plane :data:`ops.keys_step.PLAIN_PAIRS` triples at a time; what it
+    holds whole is ``adaptive``'s (B, n, n) bool bias, one byte per
+    triple.)"""
+    pack_cap = {1: prf.MAX_INSTANCES, 2: prf.V2_MAX_INSTANCES,
+                3: prf.V3_MAX_INSTANCES}[cfg.pack_version]
+    if kernel == "step":
+        return pack_cap
+    if kernel == "fused":
+        return max(1, min(pack_cap, KERNEL_MAX_PAIRS // cfg.n))
+    return max(1, min(pack_cap, (1 << 22) // cfg.n))
 
 
 class TorchBackend(SimulatorBackend):
@@ -120,21 +138,8 @@ class TorchBackend(SimulatorBackend):
             check_plain_supported(cfg)
 
     def chunk_size(self, cfg: SimConfig) -> int:
-        """Instances per call. The kernels take a whole chunk of the spec §2
-        instance field (4096 ids under v3), the fused kernel at most
-        :data:`KERNEL_MAX_PAIRS` (instance, replica) pairs; the plain driver
-        holds (B, n) int64 planes, so it is bounded by memory. (The plain keys law builds its
-        (B, n, n) int64 keys and the partition cut's (B, n, n) bool plane
-        :data:`ops.keys_step.PLAIN_PAIRS` triples at a time; what it holds
-        whole is ``adaptive``'s (B, n, n) bool bias, one byte per triple.)"""
-        pack_cap = {1: prf.MAX_INSTANCES, 2: prf.V2_MAX_INSTANCES,
-                    3: prf.V3_MAX_INSTANCES}[cfg.pack_version]
-        kernel = self.kernel_for(cfg)
-        if kernel == "step":
-            return pack_cap
-        if kernel == "fused":
-            return max(1, min(pack_cap, KERNEL_MAX_PAIRS // cfg.n))
-        return max(1, min(pack_cap, (1 << 22) // cfg.n))
+        """Instances per call (:func:`kernel_chunk_size`)."""
+        return kernel_chunk_size(cfg, self.kernel_for(cfg))
 
     def prepare(self, cfg: SimConfig) -> None:
         """Build (or load) the kernel a run of ``cfg`` launches, so a timed
@@ -144,7 +149,7 @@ class TorchBackend(SimulatorBackend):
         if self.kernel_for(cfg) == "fused":
             _build.load(fused_round.library(cfg))
         else:
-            _build.load(_step.library(_STEP_KERNELS[cfg.delivery][0], cfg))
+            _build.load(_step.library(STEP_KERNELS[cfg.delivery][0], cfg))
 
     def run(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None) -> SimResult:
         cfg = cfg.validate()
@@ -157,7 +162,7 @@ class TorchBackend(SimulatorBackend):
             impl = functools.partial(fused_round.run_chunk, cfg)
         elif kernel == "step":
             impl = functools.partial(driver.run_chunk, cfg,
-                                     counts_fn=_STEP_KERNELS[cfg.delivery][1])
+                                     counts_fn=STEP_KERNELS[cfg.delivery][1])
         else:
             impl = functools.partial(driver.run_chunk, cfg)
         rounds, decision = run_chunked(impl, ids, chunk, self.device)

@@ -96,19 +96,30 @@ def cmd_run(args) -> int:
                                    ("adversary", args.adversary),
                                    ("faults", args.faults)) if v is not None}
     cfg = dataclasses.replace(cfg, **overrides).validate()
-    backend = get_backend("torch", device=args.device, kernel=args.kernel)
+    backend = make_backend(args.backend, args.device, args.kernel)
     backend.prepare(cfg)
     res = backend.timed_run(cfg)
     out = summary(res)
-    out.update(_device_fields(backend), kernel=backend.kernel_for(cfg))
+    out.update(_device_fields(backend, args.backend), kernel=backend.kernel_for(cfg))
     if args.hist:
         out["round_histogram"] = round_histogram(res).tolist()
     print(json.dumps(out))
     return 0
 
 
-def _device_fields(backend) -> dict:
-    out = {"backend": "torch", "device": str(backend.device)}
+def make_backend(name: str, device: str, kernel):
+    """The backend ``name`` (``torch``, ``torch_sharded[:M[,KERNEL]]`` or
+    ``virtual[:DxM]``) on ``device`` with ``kernel``; ``virtual`` runs the
+    plain path on the CPU and takes neither."""
+    if name.partition(":")[0] == "virtual":
+        if kernel not in (None, "plain"):
+            raise SystemExit(f"--backend {name} runs the plain path; got --kernel {kernel}")
+        return get_backend(name)
+    return get_backend(name, device=device, kernel=kernel)
+
+
+def _device_fields(backend, name: str = "torch") -> dict:
+    out = {"backend": name, "device": str(backend.device)}
     if backend.device.type == "cuda":
         import torch
 
@@ -237,6 +248,11 @@ def build_parser() -> argparse.ArgumentParser:
                           "urn, urn2, urn3 and committee), step (the per-step "
                           "kernels, keys and urn; default on cuda for keys) or "
                           "plain (torch ops)")
+    run.add_argument("--backend", default="torch",
+                     help="torch (default) | torch_sharded[:n_model[,kernel]] (the "
+                          "(data, model) mesh: every card on the data axis, n_model "
+                          "replica shards per row) | virtual[:DxM] (the mesh's driver "
+                          "on CPU tensors, D data x M model shards)")
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
     run.set_defaults(fn=cmd_run)

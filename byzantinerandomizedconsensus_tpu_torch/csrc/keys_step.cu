@@ -6,7 +6,7 @@
 // benor and bracha, every static adversary, faults none, n <= 4096 (packing
 // laws v1 and v2). For each (instance, receiver) it selects the n - f
 // smallest of the receiver's n scheduling keys and counts the delivered 0s
-// and 1s. Only the (B, n) counts are written. Crash silences and Bracha's
+// and 1s. Only the (B, n_recv) counts are written. Crash silences and Bracha's
 // Byzantine pairing reach the kernel through the silent and values planes;
 // the adaptive family's bias and Ben-Or's per-receiver equivocation are
 // recomputed here, as in the reference.
@@ -36,6 +36,13 @@
 //      search over its keys instead.
 // The keys never leave shared memory; no lane holds more than one.
 //
+// Receiver range. The rows are the receivers recv_offset .. recv_offset +
+// n_recv - 1, a replica shard of the sharded path (pallas_tally.py:148, used
+// at :155); every sender stays in the class tables. A row's global index
+// recv_offset + r is its own message, its PRF words' receiver field, its
+// send != recv exclusion and its equivocation words; the local r indexes
+// the outputs. recv_offset 0 and n_recv n are the unsharded step.
+//
 // Ben-Or's Byzantine pairing (EQUIV) changes only the counting: a faulty
 // sender's table entry has the value code kEquivocates, which the class
 // counts skip; its value is hashed per row where the row delivers it, in the
@@ -52,23 +59,28 @@
 // v1, no equivocation) alone, keys_step_wide.cu the other three.
 #include "keys_step_kernel.cuh"
 
-// Launch one step for B instances on `stream`. Pointers are device pointers:
-// inst_ids (B,) int32; values, silent, faulty (B, n) uint8; c0, c1 (B, n)
-// int32. Packing law v1 (n <= 1024) and any adversary code of keys_step.cuh
-// but kAdvTwoFaced, which keys_step_wide.cu runs. Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int brc_keys_step_launch(const int32_t* inst_ids,
-                                    const uint8_t* values,
-                                    const uint8_t* silent,
-                                    const uint8_t* faulty, int32_t* c0,
-                                    int32_t* c1, int B, int n, int f, int rnd,
-                                    int step, int adversary, uint32_t k0,
-                                    uint32_t k1, void* stream) {
+// Launch one step for B instances on `stream`, over the receivers
+// recv_offset .. recv_offset + n_recv - 1 (a replica shard; the sender axis is
+// always all n). Pointers are device pointers: inst_ids (B,) int32; values,
+// silent, faulty (B, n) uint8; c0, c1 (B, n_recv) int32. Packing law v1 (n <=
+// 1024) and any adversary code of keys_step.cuh but kAdvTwoFaced, which
+// keys_step_wide.cu runs. Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int brc_keys_step_shard_launch(const int32_t* inst_ids,
+                                          const uint8_t* values,
+                                          const uint8_t* silent,
+                                          const uint8_t* faulty, int32_t* c0,
+                                          int32_t* c1, int B, int n, int f, int rnd,
+                                          int step, int adversary, uint32_t k0,
+                                          uint32_t k1, int recv_offset, int n_recv,
+                                          void* stream) {
   if (B <= 0) return 0;
   if (n < 1 || n > 1024 || f < 0 || f >= n) return (int)cudaErrorInvalidValue;
+  if (recv_offset < 0 || n_recv < 1 || recv_offset + n_recv > n)
+    return (int)cudaErrorInvalidValue;
   if (adversary < brc::kAdvNone || adversary >= brc::kAdvTwoFaced)
     return (int)cudaErrorInvalidValue;
   const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step, adversary};
-  return launch<1, false>(inst_ids, values, silent, faulty, c0, c1, B, p,
-                          (cudaStream_t)stream);
+  return launch<1, false>(inst_ids, values, silent, faulty, c0, c1, B, p, recv_offset,
+                          n_recv, (cudaStream_t)stream);
 }

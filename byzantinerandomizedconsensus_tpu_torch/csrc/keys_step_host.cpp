@@ -9,7 +9,8 @@
 // finish (host_select), with each warp reduction, scan and ballot written as
 // a loop over the lanes or the list in order; under packing law v2 (n >
 // 1024) with the v2 key fields and bin words, under Ben-Or's Byzantine
-// pairing with its per-row values. brc_deliver_row drives the same row work
+// pairing with its per-row values; brc_host_keys_step_shard over a receiver
+// range (the kernel's recv_offset and n_recv). brc_deliver_row drives the same row work
 // on a row given as top fields (v1).
 #include <stddef.h>
 #include <stdint.h>
@@ -179,7 +180,8 @@ namespace {
 template <int PACK, bool EQUIV>
 long long host_keys_step(const int32_t* inst_ids, const uint8_t* values,
                          const uint8_t* silent, const uint8_t* faulty, int32_t* c0_out,
-                         int32_t* c1_out, int B, const brc::StepParams& p) {
+                         int32_t* c1_out, int B, const brc::StepParams& p,
+                         int recv_offset, int n_recv) {
   const int n = p.n, f = p.f;
   const int tables = brc::table_count(p);
   std::vector<uint32_t> cls(2 * (size_t)n), list;
@@ -209,7 +211,7 @@ long long host_keys_step(const int32_t* inst_ids, const uint8_t* values,
         brc::class_add(tab[t], cls[(size_t)t * n + s], val[s]);
       }
     }
-    for (int recv = 0; recv < n; ++recv) {
+    for (int recv = recv_offset; recv < recv_offset + n_recv; ++recv) {
       const uint32_t r = (uint32_t)recv;
       const int t = brc::table_of(p, r);
       const uint32_t* tc = cls.data() + (size_t)t * n;
@@ -244,8 +246,8 @@ long long host_keys_step(const int32_t* inst_ids, const uint8_t* values,
                 v, brc::prf<PACK>(p.k0, p.k1, inst, p.rnd, p.step, r, s, brc::kSched), s);
           },
           list, &c0, &c1, nullptr);
-      c0_out[(size_t)b * n + recv] = c0 + e0;
-      c1_out[(size_t)b * n + recv] = c1 + e1;
+      c0_out[(size_t)b * n_recv + (recv - recv_offset)] = c0 + e0;
+      c1_out[(size_t)b * n_recv + (recv - recv_offset)] = c1 + e1;
     }
   }
   return hashed;
@@ -257,20 +259,37 @@ extern "C" {
 
 // One step for B instances, as the kernel computes it, under the kernel's
 // adversary codes (kAdvTwoFaced: Ben-Or's Byzantine pairing) and the
-// packing law of n. Returns the PRF words computed (host_keys_step).
+// packing law of n, over the receivers recv_offset .. recv_offset + n_recv
+// - 1 (c0_out, c1_out (B, n_recv)). Returns the PRF words computed
+// (host_keys_step).
+long long brc_host_keys_step_shard(const int32_t* inst_ids, const uint8_t* values,
+                                   const uint8_t* silent, const uint8_t* faulty,
+                                   int32_t* c0_out, int32_t* c1_out, int B, int n, int f,
+                                   int rnd, int step, int adversary, uint32_t k0,
+                                   uint32_t k1, int recv_offset, int n_recv) {
+  const bool equiv = adversary == brc::kAdvTwoFaced;
+  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
+                          equiv ? brc::kAdvNone : adversary};
+  const int o = recv_offset, r = n_recv;
+  if (n <= 1024)
+    return equiv ? host_keys_step<1, true>(inst_ids, values, silent, faulty, c0_out,
+                                           c1_out, B, p, o, r)
+                 : host_keys_step<1, false>(inst_ids, values, silent, faulty, c0_out,
+                                            c1_out, B, p, o, r);
+  return equiv ? host_keys_step<2, true>(inst_ids, values, silent, faulty, c0_out, c1_out,
+                                         B, p, o, r)
+               : host_keys_step<2, false>(inst_ids, values, silent, faulty, c0_out,
+                                          c1_out, B, p, o, r);
+}
+
+// The same over every receiver (c0_out, c1_out (B, n)).
 long long brc_host_keys_step(const int32_t* inst_ids, const uint8_t* values,
                              const uint8_t* silent, const uint8_t* faulty,
                              int32_t* c0_out, int32_t* c1_out, int B, int n,
                              int f, int rnd, int step, int adversary,
                              uint32_t k0, uint32_t k1) {
-  const bool equiv = adversary == brc::kAdvTwoFaced;
-  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
-                          equiv ? brc::kAdvNone : adversary};
-  if (n <= 1024)
-    return equiv ? host_keys_step<1, true>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p)
-                 : host_keys_step<1, false>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p);
-  return equiv ? host_keys_step<2, true>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p)
-               : host_keys_step<2, false>(inst_ids, values, silent, faulty, c0_out, c1_out, B, p);
+  return brc_host_keys_step_shard(inst_ids, values, silent, faulty, c0_out, c1_out, B, n,
+                                  f, rnd, step, adversary, k0, k1, 0, n);
 }
 
 }  // extern "C"

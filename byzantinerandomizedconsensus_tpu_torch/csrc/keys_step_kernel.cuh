@@ -38,7 +38,7 @@ keys_step_kernel(const int32_t* __restrict__ inst_ids,
                  const uint8_t* __restrict__ silent,
                  const uint8_t* __restrict__ faulty,
                  int32_t* __restrict__ c0_out, int32_t* __restrict__ c1_out,
-                 brc::StepParams p, int groups) {
+                 brc::StepParams p, int groups, int recv_offset, int n_recv) {
   using Bins = brc::BinLaw<PACK>;
   using Word = typename Bins::Word;
   constexpr int kLow = brc::kKeyLowOf<PACK>;
@@ -57,6 +57,7 @@ keys_step_kernel(const int32_t* __restrict__ inst_ids,
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x - b * groups;
   const size_t row = (size_t)b * n;
+  const size_t out_row = (size_t)b * n_recv;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lower = (1u << lane) - 1u;
 
@@ -122,9 +123,12 @@ keys_step_kernel(const int32_t* __restrict__ inst_ids,
   uint32_t* list = s_list + warp * n;
   const uint32_t inst = (uint32_t)inst_ids[b];
   const int k = n - p.f;
-  const int r_end = min(n, (g + 1) * kRows);
+  const int r_end = min(n_recv, (g + 1) * kRows);
   for (int r = g * kRows + warp; r < r_end; r += kWarps) {
-    const uint32_t recv = (uint32_t)r;
+    // The row's global receiver: the own message, the PRF word's receiver
+    // field, the send != recv exclusion and the equivocation read it; the
+    // local row r indexes the (B, n_recv) outputs.
+    const uint32_t recv = (uint32_t)(recv_offset + r);
     const int t = brc::table_of(p, recv);
     const brc::ClassTable tab = s_tab[t];
     const uint32_t own = s_val[recv];
@@ -274,25 +278,27 @@ keys_step_kernel(const int32_t* __restrict__ inst_ids,
       __syncwarp();  // the list and the slots are rewritten by the next row
     }
     if (lane == 0) {
-      c0_out[row + recv] = c0;
-      c1_out[row + recv] = c1;
+      c0_out[out_row + r] = c0;
+      c1_out[out_row + r] = c1;
     }
   }
 }
 
+// One step for B instances over the receivers recv_offset .. recv_offset +
+// n_recv - 1 (a replica shard; 0 and n for all of them).
 template <int PACK, bool EQUIV>
 int launch(const int32_t* inst_ids, const uint8_t* values, const uint8_t* silent,
            const uint8_t* faulty, int32_t* c0, int32_t* c1, int B, const brc::StepParams& p,
-           cudaStream_t stream) {
+           int recv_offset, int n_recv, cudaStream_t stream) {
   const size_t smem = smem_bytes<PACK>(p.n);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         keys_step_kernel<PACK, EQUIV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int groups = (p.n + kRows - 1) / kRows;
+  const int groups = (n_recv + kRows - 1) / kRows;
   keys_step_kernel<PACK, EQUIV><<<B * groups, kThreads, smem, stream>>>(
-      inst_ids, values, silent, faulty, c0, c1, p, groups);
+      inst_ids, values, silent, faulty, c0, c1, p, groups, recv_offset, n_recv);
   return (int)cudaGetLastError();
 }
 

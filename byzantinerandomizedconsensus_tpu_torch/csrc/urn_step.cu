@@ -16,12 +16,20 @@
 // __syncthreads_count reductions. Each thread then runs its own drop draws
 // (urn_step.cuh::urn_counts). Every receiver of an instance sees the same
 // totals less its own message, so D is the same within a CTA up to one and a
-// warp does not diverge on it. Only the (B, n) counts are written. Past
+// warp does not diverge on it. Only the (B, n_recv) counts are written. Past
 // n = 1024 (law v2), and under Ben-Or's two-faced pairing at any n,
 // urn_step_wide.cu's kernel gives each thread up to R = 4 receivers (one
 // under v1), and the totals, of each receiver class under the pairing, are
 // block_sum reductions; the class totals are the same for every receiver of
 // a class, so each thread draws for its receivers in turn.
+//
+// Receiver range. The counts are those of the receivers recv_offset ..
+// recv_offset + n_recv - 1, a replica shard of the sharded path
+// (pallas_urn.py:80, :90). Every thread still reads its sender into the
+// totals; only the threads of the range draw. Each keeps its global index
+// (urn_counts' recv): its own term, its class at (n+1)/2 and its PRF word
+// read it, and its local row indexes the (B, n_recv) outputs, as the
+// reference's own-lane gather does (:244-250).
 //
 // Bound. Integer operations. A drop draw is the LCG multiply-add, the xor-shift,
 // the draw's index scaled by 2^22 (a shift and one full-rate IMAD), and one
@@ -50,7 +58,7 @@ urn_step_kernel(const int32_t* __restrict__ inst_ids,
                 const uint8_t* __restrict__ silent,
                 const uint8_t* __restrict__ faulty,
                 int32_t* __restrict__ c0_out, int32_t* __restrict__ c1_out,
-                brc::StepParams p) {
+                brc::StepParams p, int recv_offset, int n_recv) {
   const int b = blockIdx.x;
   const uint32_t v = threadIdx.x;
   const bool active = (int)v < p.n;
@@ -67,34 +75,43 @@ urn_step_kernel(const int32_t* __restrict__ inst_ids,
     const int h1 = __syncthreads_count(honest && own == 1u);
     minority = brc::minority_of(h0, h1);
   }
-  if (!active) return;
+  // Every thread is a sender of the totals; those of the receiver range
+  // draw, with their global index v, and write their local row.
+  const int r = (int)v - recv_offset;
+  if (!active || r < 0 || r >= n_recv) return;
   int c0, c1;
   brc::urn_counts(p, (uint32_t)inst_ids[b], v, own, live, M0, M1, M2, minority,
                   &c0, &c1);
-  c0_out[at] = c0;
-  c1_out[at] = c1;
+  const size_t out = (size_t)b * n_recv + r;
+  c0_out[out] = c0;
+  c1_out[out] = c1;
 }
 
 }  // namespace
 
-// Launch one step for B instances on `stream`. Pointers are device pointers:
-// inst_ids (B,) int32; values, silent, faulty (B, n) uint8; c0, c1 (B, n)
-// int32. Packing law v1 (n <= 1024) and any adversary code of keys_step.cuh
-// but kAdvTwoFaced, which urn_step_wide.cu runs. Returns cudaGetLastError()
-// after the launch (0 on success).
-extern "C" int brc_urn_step_launch(const int32_t* inst_ids,
-                                   const uint8_t* values, const uint8_t* silent,
-                                   const uint8_t* faulty, int32_t* c0,
-                                   int32_t* c1, int B, int n, int f, int rnd,
-                                   int step, int adversary, uint32_t k0,
-                                   uint32_t k1, void* stream) {
+// Launch one step for B instances on `stream`, over the receivers
+// recv_offset .. recv_offset + n_recv - 1 (a replica shard; the sender axis is
+// always all n). Pointers are device pointers: inst_ids (B,) int32; values,
+// silent, faulty (B, n) uint8; c0, c1 (B, n_recv) int32. Packing law v1 (n <=
+// 1024) and any adversary code of keys_step.cuh but kAdvTwoFaced, which
+// urn_step_wide.cu runs. Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int brc_urn_step_shard_launch(const int32_t* inst_ids,
+                                         const uint8_t* values, const uint8_t* silent,
+                                         const uint8_t* faulty, int32_t* c0,
+                                         int32_t* c1, int B, int n, int f, int rnd,
+                                         int step, int adversary, uint32_t k0,
+                                         uint32_t k1, int recv_offset, int n_recv,
+                                         void* stream) {
   if (B <= 0) return 0;
   if (n < 1 || n > 1024 || f < 0 || f >= n) return (int)cudaErrorInvalidValue;
+  if (recv_offset < 0 || n_recv < 1 || recv_offset + n_recv > n)
+    return (int)cudaErrorInvalidValue;
   if (adversary < brc::kAdvNone || adversary >= brc::kAdvTwoFaced)
     return (int)cudaErrorInvalidValue;
   const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step, adversary};
   const int threads = (n + 31) / 32 * 32;
   urn_step_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      inst_ids, values, silent, faulty, c0, c1, p);
+      inst_ids, values, silent, faulty, c0, c1, p, recv_offset, n_recv);
   return (int)cudaGetLastError();
 }

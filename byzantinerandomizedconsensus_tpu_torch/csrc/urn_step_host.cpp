@@ -8,7 +8,9 @@
 // same functions after them as urn_step.cu does: under packing law v2 (n >
 // 1024) urn_counts<2>, under Ben-Or's two-faced pairing (kAdvTwoFaced) with
 // each sender's two class values and each class's totals. It returns the
-// random draws made, the count behind chip_smoke.py's bound.
+// random draws made, the count behind chip_smoke.py's bound;
+// brc_host_urn_step_shard does so over a receiver range (the kernels'
+// recv_offset and n_recv).
 // brc_urn_scaled and brc_sub_if_below are the draw's scaled index and the
 // pick.
 #include <stddef.h>
@@ -37,7 +39,8 @@ namespace {
 template <int PACK>
 long long host_urn_step(const int32_t* inst_ids, const uint8_t* values, const uint8_t* silent,
                         const uint8_t* faulty, int32_t* c0_out, int32_t* c1_out, int B,
-                        bool two_faced, const brc::StepParams& p) {
+                        bool two_faced, const brc::StepParams& p, int recv_offset,
+                        int n_recv) {
   const int n = p.n;
   long long draws = 0;
   std::vector<uint32_t> own0(n), own1(n);
@@ -63,14 +66,14 @@ long long host_urn_step(const int32_t* inst_ids, const uint8_t* values, const ui
       }
     }
     const uint32_t minority = brc::minority_of(h0, h1);
-    for (int v = 0; v < n; ++v) {
+    for (int v = recv_offset; v < recv_offset + n_recv; ++v) {
       const bool h = two_faced && v >= (n + 1) / 2;
       const int* m = h ? M + 3 : M;
       int c0, c1;
       draws += brc::urn_counts<PACK>(p, inst, (uint32_t)v, h ? own1[v] : own0[v],
                                      !silent[row + v], m[0], m[1], m[2], minority, &c0, &c1);
-      c0_out[row + v] = c0;
-      c1_out[row + v] = c1;
+      c0_out[(size_t)b * n_recv + (v - recv_offset)] = c0;
+      c1_out[(size_t)b * n_recv + (v - recv_offset)] = c1;
     }
   }
   return draws;
@@ -80,17 +83,32 @@ long long host_urn_step(const int32_t* inst_ids, const uint8_t* values, const ui
 
 extern "C" {
 
+// One step for B instances over the receivers recv_offset .. recv_offset +
+// n_recv - 1 (c0_out, c1_out (B, n_recv)), as urn_step.cu's kernels compute
+// it. Returns the random draws made.
+long long brc_host_urn_step_shard(const int32_t* inst_ids, const uint8_t* values,
+                                  const uint8_t* silent, const uint8_t* faulty,
+                                  int32_t* c0_out, int32_t* c1_out, int B, int n, int f,
+                                  int rnd, int step, int adversary, uint32_t k0,
+                                  uint32_t k1, int recv_offset, int n_recv) {
+  const bool two_faced = adversary == brc::kAdvTwoFaced;
+  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
+                          two_faced ? brc::kAdvNone : adversary};
+  if (n > 1024)
+    return host_urn_step<2>(inst_ids, values, silent, faulty, c0_out, c1_out, B, two_faced,
+                            p, recv_offset, n_recv);
+  return host_urn_step<1>(inst_ids, values, silent, faulty, c0_out, c1_out, B, two_faced, p,
+                          recv_offset, n_recv);
+}
+
+// The same over every receiver (c0_out, c1_out (B, n)).
 long long brc_host_urn_step(const int32_t* inst_ids, const uint8_t* values,
                             const uint8_t* silent, const uint8_t* faulty,
                             int32_t* c0_out, int32_t* c1_out, int B, int n,
                             int f, int rnd, int step, int adversary,
                             uint32_t k0, uint32_t k1) {
-  const bool two_faced = adversary == brc::kAdvTwoFaced;
-  const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
-                          two_faced ? brc::kAdvNone : adversary};
-  if (n > 1024)
-    return host_urn_step<2>(inst_ids, values, silent, faulty, c0_out, c1_out, B, two_faced, p);
-  return host_urn_step<1>(inst_ids, values, silent, faulty, c0_out, c1_out, B, two_faced, p);
+  return brc_host_urn_step_shard(inst_ids, values, silent, faulty, c0_out, c1_out, B, n, f,
+                                 rnd, step, adversary, k0, k1, 0, n);
 }
 
 }  // extern "C"

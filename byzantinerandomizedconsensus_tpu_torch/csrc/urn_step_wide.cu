@@ -13,7 +13,10 @@ namespace {
 
 // The layout past urn_step_kernel's: R receivers v = tid + k·blockDim per
 // thread, law PACK, and under TWO_FACED Ben-Or's two class rows, receiver v
-// reading the totals and its own value of its class h = v >= (n+1)/2.
+// reading the totals and its own value of its class h = v >= (n+1)/2; as
+// in urn_step_kernel, every thread reads its senders into the totals and
+// only the receivers of the range recv_offset .. recv_offset + n_recv - 1
+// draw and write their local rows.
 template <int PACK, bool TWO_FACED>
 __global__ void __launch_bounds__(1024)
 urn_step_wide_kernel(const int32_t* __restrict__ inst_ids,
@@ -21,7 +24,7 @@ urn_step_wide_kernel(const int32_t* __restrict__ inst_ids,
                      const uint8_t* __restrict__ silent,
                      const uint8_t* __restrict__ faulty,
                      int32_t* __restrict__ c0_out, int32_t* __restrict__ c1_out,
-                     brc::StepParams p) {
+                     brc::StepParams p, int recv_offset, int n_recv) {
   constexpr int R = PACK == 1 ? 1 : 4;
   constexpr int K = TWO_FACED ? 6 : 3;
   const int b = blockIdx.x;
@@ -69,7 +72,8 @@ urn_step_wide_kernel(const int32_t* __restrict__ inst_ids,
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const uint32_t v = tid + (uint32_t)k * nt;
-    if ((int)v >= p.n) continue;
+    const int r = (int)v - recv_offset;  // the local row of global receiver v
+    if ((int)v >= p.n || r < 0 || r >= n_recv) continue;
     uint32_t own = own0[k];
     int M0 = c[0], M1 = c[1], M2 = c[2];
     if constexpr (TWO_FACED) {
@@ -82,35 +86,42 @@ urn_step_wide_kernel(const int32_t* __restrict__ inst_ids,
     }
     int c0, c1;
     brc::urn_counts<PACK>(p, inst, v, own, live[k], M0, M1, M2, minority, &c0, &c1);
-    c0_out[row + v] = c0;
-    c1_out[row + v] = c1;
+    const size_t out = (size_t)b * n_recv + r;
+    c0_out[out] = c0;
+    c1_out[out] = c1;
   }
 }
 
 template <int PACK, bool TWO_FACED>
 int launch_wide(const int32_t* inst_ids, const uint8_t* values, const uint8_t* silent,
                 const uint8_t* faulty, int32_t* c0, int32_t* c1, int B,
-                const brc::StepParams& p, cudaStream_t stream) {
+                const brc::StepParams& p, int recv_offset, int n_recv,
+                cudaStream_t stream) {
   constexpr int R = PACK == 1 ? 1 : 4;
   const int threads = ((p.n + R - 1) / R + 31) / 32 * 32;
   urn_step_wide_kernel<PACK, TWO_FACED><<<B, threads, 0, stream>>>(
-      inst_ids, values, silent, faulty, c0, c1, p);
+      inst_ids, values, silent, faulty, c0, c1, p, recv_offset, n_recv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch one step for B instances on `stream`, as brc_urn_step_launch does,
-// for n <= 4096 with the adversary code kAdvTwoFaced (Ben-Or's Byzantine
-// pairing) or n > 1024. Returns cudaGetLastError() after the launch (0 on
-// success).
-extern "C" int brc_urn_step_wide_launch(const int32_t* inst_ids, const uint8_t* values,
-                                        const uint8_t* silent, const uint8_t* faulty,
-                                        int32_t* c0, int32_t* c1, int B, int n, int f,
-                                        int rnd, int step, int adversary, uint32_t k0,
-                                        uint32_t k1, void* stream) {
+// Launch one step for B instances on `stream`, as brc_urn_step_shard_launch
+// does, for n <= 4096 with the adversary code kAdvTwoFaced (Ben-Or's
+// Byzantine pairing) or n > 1024. Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int brc_urn_step_wide_shard_launch(const int32_t* inst_ids,
+                                              const uint8_t* values,
+                                              const uint8_t* silent,
+                                              const uint8_t* faulty, int32_t* c0,
+                                              int32_t* c1, int B, int n, int f, int rnd,
+                                              int step, int adversary, uint32_t k0,
+                                              uint32_t k1, int recv_offset, int n_recv,
+                                              void* stream) {
   if (B <= 0) return 0;
   if (n < 1 || n > 4096 || f < 0 || f >= n) return (int)cudaErrorInvalidValue;
+  if (recv_offset < 0 || n_recv < 1 || recv_offset + n_recv > n)
+    return (int)cudaErrorInvalidValue;
   if (adversary < brc::kAdvNone || adversary > brc::kAdvTwoFaced)
     return (int)cudaErrorInvalidValue;
   const bool two_faced = adversary == brc::kAdvTwoFaced;
@@ -118,8 +129,10 @@ extern "C" int brc_urn_step_wide_launch(const int32_t* inst_ids, const uint8_t* 
   const brc::StepParams p{k0, k1, n, f, (uint32_t)rnd, (uint32_t)step,
                           two_faced ? brc::kAdvNone : adversary};
   const cudaStream_t s = (cudaStream_t)stream;
+  const int o = recv_offset, r = n_recv;
   if (n <= 1024)
-    return launch_wide<1, true>(inst_ids, values, silent, faulty, c0, c1, B, p, s);
-  return two_faced ? launch_wide<2, true>(inst_ids, values, silent, faulty, c0, c1, B, p, s)
-                   : launch_wide<2, false>(inst_ids, values, silent, faulty, c0, c1, B, p, s);
+    return launch_wide<1, true>(inst_ids, values, silent, faulty, c0, c1, B, p, o, r, s);
+  return two_faced
+             ? launch_wide<2, true>(inst_ids, values, silent, faulty, c0, c1, B, p, o, r, s)
+             : launch_wide<2, false>(inst_ids, values, silent, faulty, c0, c1, B, p, o, r, s);
 }

@@ -9,7 +9,8 @@ and a per-step injection mapping honest outgoing values to
 
 - ``values``: (B, n) common per-sender wire values;
 - ``silent``: (B, n) bool sender silences;
-- ``bias``:   (B, 1, n) or (B, R, n) scheduling-bias bits (spec §4 bit 30).
+- ``bias``:   (B, 1, n) or (B, R, n) scheduling-bias bits (spec §4 bit 30),
+  R the receivers (all n, or a replica shard's ``recv_ids``).
 
 Ben-Or's Byzantine pairing equivocates per receiver. Its inject passes the
 honest values through, and each delivery law draws the equivocation itself:
@@ -73,34 +74,37 @@ def two_faced(cfg) -> bool:
 
 
 def equivocation_values(cfg, seed, inst_ids: torch.Tensor, rnd, t,
-                        honest: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
-    """(B, n, n) uint8, axes (instance, recv, send): the wire value each
-    receiver sees from each sender under Ben-Or's Byzantine pairing (spec
-    §6.3). A faulty sender shows receiver ``recv`` the value
-    ``prf_u32(..., recv, send, BYZ_VALUE) % 3`` (2 is ⊥, a live message
-    that is not counted); the others their honest value."""
+                        honest: torch.Tensor, faulty: torch.Tensor,
+                        recv_ids=None) -> torch.Tensor:
+    """(B, R, n) uint8, axes (instance, recv, send): the wire value each
+    receiver of ``recv_ids`` (default all n) sees from each sender under
+    Ben-Or's Byzantine pairing (spec §6.3). A faulty sender shows receiver
+    ``recv`` the value ``prf_u32(..., recv, send, BYZ_VALUE) % 3`` (2 is ⊥,
+    a live message that is not counted); the others their honest value."""
     n, dev = cfg.n, honest.device
-    recv = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    recv = prf.receivers(cfg, recv_ids, dev)[None, :, None]
     send = torch.arange(n, dtype=torch.int64, device=dev)[None, None, :]
     e = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None, None], rnd, t, recv, send,
                     prf.BYZ_VALUE, pack=cfg.pack_version)
     return torch.where(faulty[:, None, :], (e % 3).to(torch.uint8), honest[:, None, :])
 
 
-def scheduling_bias(cfg, values: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
+def scheduling_bias(cfg, values: torch.Tensor, faulty: torch.Tensor,
+                    recv_ids=None) -> torch.Tensor:
     """The keys law's scheduling-bias bits (spec §4 bit 30) for one step's
     wire ``values``: all zero (B, 1, n) under ``none``; by receiver class
-    under ``adaptive`` ((B, n, n): receiver v prefers 0 iff v < (n+1)/2);
-    minority first under ``adaptive_min`` ((B, 1, n)), the minority of the
-    non-faulty wire values, which are the honest ones. ⊥ is always biased.
-    Only the adaptive family biases scheduling."""
+    under ``adaptive`` ((B, R, n) over the receivers ``recv_ids``, default
+    all n: receiver v prefers 0 iff v < (n+1)/2); minority first under
+    ``adaptive_min`` ((B, 1, n)), the minority of the non-faulty wire
+    values, which are the honest ones. ⊥ is always biased. Only the
+    adaptive family biases scheduling."""
     B, n = values.shape
     if cfg.adversary not in ADAPTIVE:
         return torch.zeros((B, 1, n), dtype=torch.bool, device=values.device)
     vv = values[:, None, :]
     if cfg.adversary == "adaptive_min":
         return (vv == 2) | (vv != observed_minority(values, faulty)[:, None, None])
-    pref = (torch.arange(n, device=values.device) >= (cfg.n_eff + 1) // 2)[None, :, None]
+    pref = (prf.receivers(cfg, recv_ids, values.device) >= (cfg.n_eff + 1) // 2)[None, :, None]
     return (vv == 2) | (vv != pref)
 
 
@@ -129,7 +133,7 @@ class AdversaryModel:
                 "faults": setup_faults(self.cfg, seed, inst_ids, fprone=fprone)}
 
     def inject(self, seed, inst_ids, rnd, t, honest_values: torch.Tensor, setup,
-               with_bias: bool = True):
+               with_bias: bool = True, recv_ids=None):
         """One step's ``(values, silent, bias)`` (spec §6).
 
         Crashed replicas (faulty, from their crash round on) are silent.
@@ -143,7 +147,9 @@ class AdversaryModel:
         values, so the bias is all zero (B, 1, n); under the keys law it is
         :func:`scheduling_bias`. ``with_bias=False`` returns ``None`` for
         the bias: the per-step kernels recompute it from the wire values
-        themselves, as the reference's Pallas kernels do.
+        themselves, as the reference's Pallas kernels do. ``recv_ids``
+        (global indices, a replica shard of the sharded path) restricts the
+        receiver axis of the adaptive bias; the sender axis stays full width.
         """
         cfg = self.cfg
         B, n = honest_values.shape
@@ -165,4 +171,4 @@ class AdversaryModel:
             return values, silent, None
         if cfg.count_level:
             return values, silent, torch.zeros((B, 1, n), dtype=torch.bool, device=dev)
-        return values, silent, scheduling_bias(cfg, values, faulty)
+        return values, silent, scheduling_bias(cfg, values, faulty, recv_ids)

@@ -16,12 +16,13 @@ from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
-               counts_fn=None, stats=None) -> dict:
+               counts_fn=None, stats=None, recv_ids=None, gather=None) -> dict:
     """Execute one Ben-Or round; returns the new state dict.
 
     ``counts_fn`` and ``stats`` are the delivery hook and the sampler's cost
     counters (the propose step's over undecided replicas only),
-    ``coin_words`` and ``fault_words``, as in :func:`models.bracha.round_body`.
+    ``coin_words`` and ``fault_words``, and ``recv_ids``/``gather`` the
+    replica-sharded path's seams, as in :func:`models.bracha.round_body`.
     """
     # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
     n, f = committee.quorum_params(cfg)
@@ -31,13 +32,17 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     fsil, fside = faults.round_masks(cfg, seed, inst_ids, rnd, setup.get("faults"),
                                      stats=stats)
     counts = make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=counts_fn,
-                         stats=stats, fside=fside)
+                         stats=stats, fside=fside, recv_ids=recv_ids)
+    if gather is None:  # the unsharded path: R = n
+        def gather(v):
+            return v
     with_bias = counts_fn is None
 
     def inject(t, honest):
         """The adversary's wire, then the §9 fault silences, then the
         committee's membership silence (spec §10.4)."""
-        v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias)
+        v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias,
+                             recv_ids=recv_ids)
         if fsil is not None:
             s = s | fsil
         msil = committee.step_silence(cfg, seed, inst_ids, rnd, t, stats=stats)
@@ -50,19 +55,21 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
                       for v in (1, 0, 2))
 
     # Step 0 — report: broadcast est.
-    v0, s0, b0 = inject(0, est)
-    r0, r1 = counts(0, est, v0, s0, b0)
+    h0 = gather(est)
+    v0, s0, b0 = inject(0, h0)
+    r0, r1 = counts(0, h0, v0, s0, b0)
     prop = torch.where(2 * r1 > quorum_rhs, one,
                        torch.where(2 * r0 > quorum_rhs, zero, bot))
 
     # Step 1 — propose: broadcast prop (bot = 2 is not counted).
-    v1, s1, b1 = inject(1, prop)
+    h1 = gather(prop)
+    v1, s1, b1 = inject(1, h1)
     upd = ~decided
-    p0, p1 = counts(1, prop, v1, s1, b1, need=upd)
+    p0, p1 = counts(1, h1, v1, s1, b1, need=upd)
     w = (p1 >= p0).to(torch.uint8)
     c = torch.where(w == 1, p1, p0)
 
-    coin = coins.coin_bits(cfg, seed, inst_ids, rnd)
+    coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
     adopt = c >= adopt_min
     new_est = torch.where(adopt, w, coin)
     decide_now = (2 * c > n + f) if lying else (c >= f + 1)

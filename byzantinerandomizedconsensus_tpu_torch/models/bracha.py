@@ -15,7 +15,7 @@ from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
-               counts_fn=None, stats=None) -> dict:
+               counts_fn=None, stats=None, recv_ids=None, gather=None) -> dict:
     """Execute one Bracha round; returns the new state dict.
 
     ``counts_fn`` swaps a per-step kernel in for the delivery law's plain
@@ -25,6 +25,13 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     the round math never reads — over the receivers whose counts are read
     (the last step's only by undecided replicas), ``coin_words`` and, under
     omission, the fault schedule's ``fault_words``.
+
+    ``recv_ids``/``gather`` are the replica-sharded path's seams
+    (``parallel/sharded.py``): the state holds only the receivers
+    ``recv_ids`` (global indices), and ``gather`` all-gathers each step's
+    (B, R) values to the full (B, n) width before the adversary, validation
+    and delivery see them. Validation and the live counts run over the
+    full sender width. Without them R = n and nothing is gathered.
     """
     # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
     n, f = committee.quorum_params(cfg)
@@ -36,43 +43,50 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     fsil, fside = faults.round_masks(cfg, seed, inst_ids, rnd, setup.get("faults"),
                                      stats=stats)
     counts = make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=counts_fn,
-                         stats=stats, fside=fside)
+                         stats=stats, fside=fside, recv_ids=recv_ids)
+    if gather is None:  # the unsharded path: R = n
+        def gather(v):
+            return v
     with_bias = counts_fn is None
 
     def inject(t, honest):
         """The adversary's wire, then the §9 fault silences, then the
         committee's membership silence (spec §10.4)."""
-        v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias)
+        v, s, b = adv.inject(seed, inst_ids, rnd, t, honest, setup, with_bias,
+                             recv_ids=recv_ids)
         if fsil is not None:
             s = s | fsil
         msil = committee.step_silence(cfg, seed, inst_ids, rnd, t, stats=stats)
         return v, (s if msil is None else s | msil), b
 
     # Step 0 — broadcast est; majority of delivered (ties -> 1).
-    v0, s0, b0 = inject(0, est)
+    h0 = gather(est)
+    v0, s0, b0 = inject(0, h0)
     g0_0, g0_1 = validation.live_counts(v0, s0)
-    c0_0, c0_1 = counts(0, est, v0, s0, b0)
+    c0_0, c0_1 = counts(0, h0, v0, s0, b0)
     m = (c0_1 >= c0_0).to(torch.uint8)
 
     # Step 1 — broadcast m; invalid messages silenced before delivery
     # (spec §5.1b); a decide-proposal needs an absolute > n/2 quorum.
-    v1, s1, b1 = inject(1, m)
+    h1 = gather(m)
+    v1, s1, b1 = inject(1, h1)
     s1 = s1 | validation.validate_step1(cfg, v1, g0_0, g0_1, nf=(n, f))
     g1_0, g1_1 = validation.live_counts(v1, s1)
-    c1_0, c1_1 = counts(1, m, v1, s1, b1)
+    c1_0, c1_1 = counts(1, h1, v1, s1, b1)
     one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
                       for v in (1, 0, 2))
     d = torch.where(2 * c1_1 > n, one, torch.where(2 * c1_0 > n, zero, bot))
 
     # Step 2 — broadcast d (bot = 2 is not counted); validated against G1.
-    v2, s2, b2 = inject(2, d)
+    h2 = gather(d)
+    v2, s2, b2 = inject(2, h2)
     s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1, nf=(n, f))
     upd = ~decided
-    c2_0, c2_1 = counts(2, d, v2, s2, b2, need=upd)
+    c2_0, c2_1 = counts(2, h2, v2, s2, b2, need=upd)
     w = (c2_1 >= c2_0).to(torch.uint8)
     c = torch.where(w == 1, c2_1, c2_0)
 
-    coin = coins.coin_bits(cfg, seed, inst_ids, rnd)
+    coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
     decide_now = c >= 2 * f + 1
     adopt = c >= f + 1
     new_est = torch.where(adopt, w, coin)

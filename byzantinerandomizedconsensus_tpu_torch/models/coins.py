@@ -10,22 +10,23 @@ from __future__ import annotations
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.ops import prf
+from byzantinerandomizedconsensus_tpu_torch.ops.prf import receivers
 
 
-def coin_bits(cfg, seed, inst_ids: torch.Tensor, rnd: int) -> torch.Tensor:
-    """Coin bits, shape (B, n) uint8."""
+def coin_bits(cfg, seed, inst_ids: torch.Tensor, rnd: int, recv_ids=None) -> torch.Tensor:
+    """Coin bits, shape (B, R) uint8, of the replicas ``recv_ids`` (global
+    indices; default all n)."""
     inst = inst_ids.to(torch.int64)[:, None]
     B = inst.shape[0]
+    replica = receivers(cfg, recv_ids, inst.device)[None, :]
     if cfg.coin == "local":
-        replica = torch.arange(cfg.n, dtype=torch.int64,
-                               device=inst.device)[None, :]
         return prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, replica, 0,
                            prf.LOCAL_COIN, pack=cfg.pack_version).to(torch.uint8)
     if cfg.coin != "shared":
         raise ValueError(f"unknown coin {cfg.coin!r}")
     bit = prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, 0, 0, prf.SHARED_COIN,
                       pack=cfg.pack_version).to(torch.uint8)
-    return bit.expand(B, cfg.n)
+    return bit.expand(B, replica.shape[1])
 
 
 def coin_words(cfg, takes_coin: torch.Tensor) -> torch.Tensor:

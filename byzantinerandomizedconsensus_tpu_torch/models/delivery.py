@@ -23,7 +23,7 @@ DELIVERIES = ("keys",) + tuple(_COUNTS_FNS)
 
 
 def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
-                fside=None):
+                fside=None, recv_ids=None):
     """Build the ``counts(t, honest, values, silent, bias, need=None) ->
     (c0, c1)`` closure a round body calls once per broadcast step.
     ``stats``, when a dict, collects the count-level sampler's cost counters
@@ -33,7 +33,10 @@ def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
     the law through ``silent``); the per-step kernels have no fault
     channel, so a ``counts_fn`` under a fault schedule raises
     :class:`~models.faults.FaultsUnsupported`, and no committee channel
-    (:class:`~models.committee.CommitteeUnsupported`)."""
+    (:class:`~models.committee.CommitteeUnsupported`). ``recv_ids`` (global
+    indices, a replica shard of the sharded path) makes the counts (B, R)
+    over those receivers; a ``counts_fn`` is given it as a keyword only
+    then, so a hook without the argument runs the full width."""
     if cfg.delivery not in DELIVERIES:
         raise NotImplementedError(
             f"delivery={cfg.delivery!r} is not ported yet; the port runs "
@@ -42,17 +45,19 @@ def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
         check_faults_supported(cfg, "the per-step delivery kernels")
         check_committee_supported(cfg, "the per-step delivery kernels")
 
+    shard = {} if recv_ids is None else {"recv_ids": recv_ids}
+
     def counts(t, honest, values, silent, bias, need=None):
         if counts_fn is not None:
             return counts_fn(cfg, seed, inst_ids, rnd, t, values, silent,
-                             setup["faulty"], honest)
+                             setup["faulty"], honest, **shard)
         if cfg.count_level:
             return _COUNTS_FNS[cfg.delivery](cfg, seed, inst_ids, rnd, t, values,
                                              silent, setup["faulty"], honest,
                                              stats=stats, stats_lanes=need,
-                                             fside=fside)
+                                             fside=fside, recv_ids=recv_ids)
         return keys_step.step_counts_plain(cfg, seed, inst_ids, rnd, t, values,
                                            silent, setup["faulty"], bias,
-                                           fside=fside)
+                                           fside=fside, recv_ids=recv_ids)
 
     return counts

@@ -148,5 +148,6 @@ def cross_silent(fside: torch.Tensor, recv_ids=None) -> torch.Tensor:
     """(B, R, n) bool — the partition cut as a per-(recv, send) silence
     plane for the spec §4 keys law: suppressed iff the two sides differ.
     ``recv_ids`` restricts the receiver axis (default all n)."""
-    fside_recv = fside if recv_ids is None else fside[:, recv_ids.to(torch.int64)]
+    fside_recv = (fside if recv_ids is None
+                  else fside[:, recv_ids.to(device=fside.device, dtype=torch.int64)])
     return fside_recv[:, :, None] != fside[:, None, :]

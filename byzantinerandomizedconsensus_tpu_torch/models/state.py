@@ -1,8 +1,9 @@
 """State initialisation, result extraction and the packed state word.
 
 Torch counterpart of the reference ``models/state.py``. The state dict has the
-reference's keys and dtypes: ``est`` and ``decided_val`` uint8 (B, n),
-``decided`` bool (B, n), ``phase`` int32 (B, n). The ``*_from_numpy``
+reference's keys and dtypes: ``est`` and ``decided_val`` uint8 (B, R),
+``decided`` bool (B, R), ``phase`` int32 (B, R), R the n replicas or, on
+the sharded path, a shard of them (``recv_ids``). The ``*_from_numpy``
 functions carry a reference state (numpy arrays) into the port, so both round
 bodies can start from the same mid-run state.
 """
@@ -13,18 +14,21 @@ import numpy as np
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.ops import prf
+from byzantinerandomizedconsensus_tpu_torch.ops.prf import receivers
 
 
-def init_est(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
-    """(B, n) uint8 initial estimates (spec §3.1)."""
+def init_est(cfg, seed, inst_ids: torch.Tensor, recv_ids=None) -> torch.Tensor:
+    """(B, R) uint8 initial estimates (spec §3.1) of the receivers
+    ``recv_ids`` (global indices; default all n, R = n)."""
     B, dev = inst_ids.shape[0], inst_ids.device
-    replica = torch.arange(cfg.n, dtype=torch.int64, device=dev)[None, :]
+    replica = receivers(cfg, recv_ids, dev)[None, :]
+    R = replica.shape[1]
     if cfg.init == "all0":
-        return torch.zeros((B, cfg.n), dtype=torch.uint8, device=dev)
+        return torch.zeros((B, R), dtype=torch.uint8, device=dev)
     if cfg.init == "all1":
-        return torch.ones((B, cfg.n), dtype=torch.uint8, device=dev)
+        return torch.ones((B, R), dtype=torch.uint8, device=dev)
     if cfg.init == "split":
-        return (replica & 1).to(torch.uint8).expand(B, cfg.n).contiguous()
+        return (replica & 1).to(torch.uint8).expand(B, R).contiguous()
     if cfg.init != "random":
         raise ValueError(f"unknown init {cfg.init!r}")
     inst = inst_ids.to(torch.int64)[:, None]
@@ -32,8 +36,9 @@ def init_est(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
                        pack=cfg.pack_version).to(torch.uint8)
 
 
-def init_state(cfg, seed, inst_ids: torch.Tensor) -> dict:
-    est = init_est(cfg, seed, inst_ids)
+def init_state(cfg, seed, inst_ids: torch.Tensor, recv_ids=None) -> dict:
+    """The (B, R) state of the receivers ``recv_ids`` (default all n)."""
+    est = init_est(cfg, seed, inst_ids, recv_ids)
     return {
         "est": est,
         "decided": torch.zeros(est.shape, dtype=torch.bool, device=est.device),

@@ -1,6 +1,7 @@
 """The launch shared by the per-step kernels (``csrc/keys_step.cu``,
 ``csrc/urn_step.cu``), and the surface they guard: both take the same
-operands and write two (B, n) int32 count planes, so one binding serves both.
+operands (the (B, n) planes of every sender and a range of receivers) and
+write two (B, n_recv) int32 count planes, so one binding serves both.
 Both protocols, every static adversary, every init law, both coins and the
 packing laws v1 and v2 (n ≤ 4096) are on the surface; each kernel has two
 libraries (:func:`library`), its config-5 instantiation (law v1, no
@@ -82,13 +83,28 @@ def check_step_supported(cfg) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, lib=None):
-    """The C entry ``brc_<name>_launch`` of library ``name``, or of ``lib``."""
-    fn = getattr(_build.load(name) if lib is None else lib, f"brc_{name}_launch")
+def _launcher(name: str, lib=None, shard: bool = True):
+    """The C entry of library ``name``, or of ``lib``: ``brc_<name>_shard_launch``,
+    which takes a receiver range, or with ``shard=False`` ``brc_<name>_launch``,
+    the full-width entry of the builds before the range."""
+    entry = f"brc_{name}_shard_launch" if shard else f"brc_{name}_launch"
+    fn = getattr(_build.load(name) if lib is None else lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * (2 if shard else 0) + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def receiver_range(cfg, recv_ids) -> tuple[int, int]:
+    """``(recv_offset, n_recv)`` of ``recv_ids``, a contiguous range of
+    global receiver indices (a replica shard of the sharded path), as the
+    reference's adapters read it (``recv_ids[0]`` and its length; checked
+    by :func:`launch`); ``(0, n)`` for ``None``. Reading the first index of
+    a CUDA tensor waits for it."""
+    if recv_ids is None:
+        return 0, cfg.n
+    return (int(recv_ids[0]) if len(recv_ids) else 0), len(recv_ids)
 
 
 def _u8(x: torch.Tensor, what: str, shape) -> torch.Tensor:
@@ -100,15 +116,20 @@ def _u8(x: torch.Tensor, what: str, shape) -> torch.Tensor:
 
 
 def launch(name: str, cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
-           values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor, lib=None):
+           values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor,
+           recv_offset: int = 0, n_recv=None, lib=None):
     """Launch kernel ``name`` (``keys_step`` or ``urn_step``) on CUDA
-    tensors, from its :func:`library` for ``cfg``; returns ``(c0, c1)``.
+    tensors, from its :func:`library` for ``cfg``; returns ``(c0, c1)``,
+    two (B, n_recv) int32 planes: the counts of the global receivers
+    ``recv_offset .. recv_offset + n_recv - 1`` (default all n).
 
     ``inst_ids`` (B,) int32; ``values``, ``silent``, ``faulty`` (B, n) uint8
-    or bool, all contiguous and on one CUDA device. Raises on anything else
-    and on a launch that returns a CUDA error. ``lib`` is a loaded build of
-    ``csrc/<name>.cu`` with the same C interface, for a config of its
-    surface (default: the port's own builds).
+    or bool, all contiguous and on one CUDA device: the sender axis is
+    always full width. Raises on anything else and on a launch that
+    returns a CUDA error. ``lib`` is a loaded build of ``csrc/<name>.cu``,
+    for a config of its surface (default: the port's own builds); one
+    without ``brc_<name>_shard_launch`` (a build before the receiver
+    range) runs the full width only, through ``brc_<name>_launch``.
     """
     dev = inst_ids.device
     if dev.type != "cuda" or any(x.device != dev for x in (values, silent, faulty)):
@@ -117,17 +138,25 @@ def launch(name: str, cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
             or not inst_ids.is_contiguous():
         raise ValueError("inst_ids must be a contiguous 1-D int32 tensor")
     B, n = inst_ids.shape[0], cfg.n
+    n_recv = n if n_recv is None else int(n_recv)
+    if n_recv < 1 or recv_offset < 0 or recv_offset + n_recv > n:
+        raise ValueError(f"receiver range [{recv_offset}, {recv_offset + n_recv}) "
+                         f"is not a non-empty range of the n={n} replicas")
     planes = [_u8(x, w, (B, n)) for x, w in
               ((values, "values"), (silent, "silent"), (faulty, "faulty"))]
     k0, k1 = prf.seed_key(seed)
-    c0 = torch.empty((B, n), dtype=torch.int32, device=dev)
-    c1 = torch.empty((B, n), dtype=torch.int32, device=dev)
-    fn = _launcher(name if lib is not None else library(name, cfg), lib)
+    c0 = torch.empty((B, n_recv), dtype=torch.int32, device=dev)
+    c1 = torch.empty((B, n_recv), dtype=torch.int32, device=dev)
+    shard = lib is None or hasattr(lib, f"brc_{name}_shard_launch")
+    if not shard and (recv_offset, n_recv) != (0, n):
+        raise ValueError(f"this build of {name} has no receiver range")
+    fn = _launcher(name if lib is not None else library(name, cfg), lib, shard)
+    args = [inst_ids.data_ptr(), *(x.data_ptr() for x in planes), c0.data_ptr(),
+            c1.data_ptr(), B, n, cfg.f, int(rnd), int(step), adversary_code(cfg), k0, k1]
+    if shard:
+        args += [int(recv_offset), n_recv]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(inst_ids.data_ptr(), *(x.data_ptr() for x in planes),
-                c0.data_ptr(), c1.data_ptr(), B, n, cfg.f, int(rnd), int(step),
-                adversary_code(cfg), k0, k1, stream)
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return c0, c1

@@ -62,11 +62,12 @@ def committee_quota(n: int, f: int) -> int:
     return committee_size(n) - committee_fault_budget(n, f) - 1
 
 
-def membership_plane(cfg, seed, inst_ids: torch.Tensor, rnd, t) -> torch.Tensor:
-    """(B, n) bool — committee membership of every replica for step ``t``
-    (spec §10.1): its COMMITTEE ``send=0`` word mod n below C."""
+def membership_plane(cfg, seed, inst_ids: torch.Tensor, rnd, t, recv_ids=None) -> torch.Tensor:
+    """(B, R) bool — committee membership of the replicas ``recv_ids``
+    (default all n) for step ``t`` (spec §10.1): each one's COMMITTEE
+    ``send=0`` word mod n below C."""
     inst = inst_ids.to(torch.int64)[:, None]
-    replica = torch.arange(cfg.n, dtype=torch.int64, device=inst_ids.device)[None, :]
+    replica = prf.receivers(cfg, recv_ids, inst_ids.device)[None, :]
     word = prf.prf_u32(seed, inst, rnd, t, replica, 0, prf.COMMITTEE, pack=cfg.pack_version)
     return (word % cfg.n) < committee_size(cfg.n)
 
@@ -90,7 +91,7 @@ def step_silence(cfg, seed, inst_ids: torch.Tensor, rnd, t, stats=None):
 
 
 def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
-              honest=None, stats=None, stats_lanes=None, fside=None):
+              honest=None, stats=None, stats_lanes=None, fside=None, recv_ids=None):
     """(c0, c1) delivered-value counts per receiver lane — spec §10.2.
 
     ``silent`` arrives with the membership silence folded in (spec §10.4),
@@ -99,18 +100,20 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
     ``stats``, when a dict, gains ``committee_draws`` (the drop words the
     law needs) and ``cheap_segments`` over the receivers ``stats_lanes``
     (:func:`ops.urn3.count_work`); the membership words are counted by
-    :func:`step_silence`.
+    :func:`step_silence`. The lanes are the receivers ``recv_ids``
+    (default all n).
     """
     own_val, m, st, L, _ = urn.lane_setup(cfg, values, silent, faulty, honest,
-                                          seed, inst_ids, rnd, t, fside=fside)
+                                          seed, inst_ids, rnd, t, fside=fside,
+                                          recv_ids=recv_ids)
     D = torch.clamp(L - committee_quota(cfg.n, cfg.f), min=0)
     if stats is not None:
         urn3.count_work(stats, "committee_draws", D, st is not None, stats_lanes)
     inst = inst_ids.to(torch.int64)[:, None]
-    recv = torch.arange(cfg.n, dtype=torch.int64, device=values.device)[None, :]
+    recv = prf.receivers(cfg, recv_ids, values.device)[None, :]
     u = prf.prf_u32(seed, inst, rnd, t, recv, 1, prf.COMMITTEE, pack=cfg.pack_version)
     # The receiver's own membership: the coordinates of its silence.
-    member = membership_plane(cfg, seed, inst_ids, rnd, t)
+    member = membership_plane(cfg, seed, inst_ids, rnd, t, recv_ids)
     d0, d1 = urn3.cheap_split(u, m, st, L, D)
     c0 = m[0] - d0 + (member & (own_val == 0)).to(torch.int32)
     c1 = m[1] - d1 + (member & (own_val == 1)).to(torch.int32)

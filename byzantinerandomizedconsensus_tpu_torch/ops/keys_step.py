@@ -27,6 +27,8 @@ two (B, n) int32:
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import (
@@ -39,33 +41,43 @@ from byzantinerandomizedconsensus_tpu_torch.ops import _step, masks, tally
 #: Ben-Or's Byzantine pairing the equivocation values), so 1.6 GB.
 PLAIN_PAIRS = 1 << 24
 
-#: Launches of the CUDA kernel since the count was last set to 0.
+#: Launches of the CUDA kernel since the count was last set to 0 (the
+#: sharded path's shard threads add under :data:`_count_lock`).
 launches = 0
+_count_lock = threading.Lock()
 
 
-def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest):
+def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest,
+              recv_ids=None):
     """The round body's delivery hook (models/delivery.py): the kernel
-    recomputes the bias from the wire values, so ``honest`` is not read."""
-    return step_counts(cfg, seed, inst_ids, rnd, t, values, silent, faulty)
+    recomputes the bias from the wire values, so ``honest`` is not read.
+    ``recv_ids``, a contiguous receiver shard, maps to the kernel's receiver
+    offset, as in the reference's adapter (``pallas_tally.py:268-273``)."""
+    return step_counts(cfg, seed, inst_ids, rnd, t, values, silent, faulty, recv_ids)
 
 
 def step_counts(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
-                values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor):
-    """(c0, c1) for one broadcast step through the CUDA kernel; CPU tensors
-    run :func:`step_counts_plain`."""
+                values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor,
+                recv_ids=None):
+    """(c0, c1) for one broadcast step through the CUDA kernel, (B, R) over
+    the receivers ``recv_ids`` (a contiguous range of global indices,
+    default all n); CPU tensors run :func:`step_counts_plain`."""
     global launches
     _step.check_step_supported(cfg)
     if inst_ids.device.type == "cpu":
-        return step_counts_plain(cfg, seed, inst_ids, rnd, step, values, silent, faulty)
+        return step_counts_plain(cfg, seed, inst_ids, rnd, step, values, silent, faulty,
+                                 recv_ids=recv_ids)
     out = _step.launch("keys_step", cfg, seed, inst_ids, rnd, step, values,
-                       silent, faulty)
-    launches += 1
+                       silent, faulty, *_step.receiver_range(cfg, recv_ids))
+    with _count_lock:
+        launches += 1
     return out
 
 
 def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
                       values: torch.Tensor, silent: torch.Tensor,
-                      faulty: torch.Tensor, bias=None, fside=None, stats=None):
+                      faulty: torch.Tensor, bias=None, fside=None, stats=None,
+                      recv_ids=None):
     """The keys law in torch ops, at most :data:`PLAIN_PAIRS` key triples
     at a time. ``bias`` is the (B, 1, n) or (B, R, n) scheduling bias of
     ``inject``; ``None`` computes it chunk by chunk with
@@ -78,20 +90,25 @@ def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
     :func:`models.adversaries.equivocation_values`; ``stats``, when a dict,
     then gains ``equivocation_words``, the (receiver, delivered faulty
     sender) pairs, own message included, each one PRF word of the
-    kernel."""
+    kernel. The rows are the receivers ``recv_ids`` (global indices,
+    default all n): the counts are (B, R)."""
     if fside is not None and not bool(fside.any()):
         fside = None
-    per = max(1, PLAIN_PAIRS // (cfg.n * cfg.n))
+    R = cfg.n if recv_ids is None else recv_ids.shape[0]
+    shard = {} if recv_ids is None else {"recv_ids": recv_ids}
+    per = max(1, PLAIN_PAIRS // (R * cfg.n))
     parts = []
     for lo in range(0, inst_ids.shape[0], per):
         hi = lo + per
         v = values[lo:hi]
-        b = scheduling_bias(cfg, v, faulty[lo:hi]) if bias is None else bias[lo:hi]
-        x = None if fside is None else cross_silent(fside[lo:hi])
+        b = (scheduling_bias(cfg, v, faulty[lo:hi], recv_ids) if bias is None
+             else bias[lo:hi])
+        x = None if fside is None else cross_silent(fside[lo:hi], **shard)
         mask = masks.delivery_mask(cfg, seed, inst_ids[lo:hi], rnd, step,
-                                   silent[lo:hi], b, xsilent=x)
+                                   silent[lo:hi], b, recv_ids=recv_ids, xsilent=x)
         if two_faced(cfg):
-            v = equivocation_values(cfg, seed, inst_ids[lo:hi], rnd, step, v, faulty[lo:hi])
+            v = equivocation_values(cfg, seed, inst_ids[lo:hi], rnd, step, v,
+                                    faulty[lo:hi], recv_ids)
             if stats is not None:
                 stats["equivocation_words"] = stats.get("equivocation_words", 0) + int(
                     (mask & faulty[lo:hi, None, :]).sum())

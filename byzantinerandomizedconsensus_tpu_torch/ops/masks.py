@@ -27,9 +27,7 @@ def combined_keys(cfg, seed, inst_ids: torch.Tensor, rnd, t, silent, bias,
     the spec §9 partition cut, OR'd into the sender silences (its diagonal
     is False: a replica shares its own side)."""
     n, dev = cfg.n, silent.device
-    if recv_ids is None:
-        recv_ids = torch.arange(n, device=dev)
-    recv = recv_ids.to(torch.int64)[None, :, None]
+    recv = prf.receivers(cfg, recv_ids, dev)[None, :, None]
     send = torch.arange(n, dtype=torch.int64, device=dev)[None, None, :]
     sched = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None, None], rnd, t,
                         recv, send, prf.SCHED, pack=cfg.pack_version)
@@ -49,13 +47,12 @@ def mask_from_keys(combined: torch.Tensor, n_deliver: int, silent,
     """(B, R, n) bool: the ``n_deliver`` smallest keys of each receiver row,
     minus silent senders (and the (B, R, n) ``xsilent`` cut), plus the
     receiver's own message."""
-    n = combined.shape[-1]
+    n, dev = combined.shape[-1], combined.device
     kth = torch.kthvalue(combined, n_deliver, dim=-1).values
     mask = combined <= kth[..., None]
-    if recv_ids is None:
-        recv_ids = torch.arange(n, device=combined.device)
-    own = (recv_ids.to(torch.int64)[:, None]
-           == torch.arange(n, device=combined.device)[None, :])[None]
+    recv = (torch.arange(n, device=dev) if recv_ids is None
+            else recv_ids.to(device=dev, dtype=torch.int64))
+    own = (recv[:, None] == torch.arange(n, device=dev)[None, :])[None]
     excl = silent[:, None, :] if xsilent is None else silent[:, None, :] | xsilent
     return (mask & ~excl) | own
 

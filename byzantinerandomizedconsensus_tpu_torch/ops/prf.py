@@ -117,6 +117,14 @@ def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor) -> torch.
     return x0
 
 
+def receivers(cfg, recv_ids, device) -> torch.Tensor:
+    """(R,) int64 global receiver indices: ``recv_ids`` (a replica shard of
+    the sharded path, ``parallel/sharded.py``) or all n."""
+    if recv_ids is None:
+        return torch.arange(cfg.n, dtype=torch.int64, device=device)
+    return recv_ids.to(device=device, dtype=torch.int64)
+
+
 def seed_key(seed) -> tuple[int, int]:
     """Split a 64-bit python int seed into the (k0, k1) u32 key pair; an
     already-split ``(k0, k1)`` tuple passes through."""

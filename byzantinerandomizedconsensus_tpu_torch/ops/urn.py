@@ -38,16 +38,16 @@ def byz_class_values(cfg, seed, inst_ids: torch.Tensor, rnd, t,
 
 def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
                honest=None, seed=None, inst_ids=None, rnd=None, t=None,
-               fside=None):
+               fside=None, recv_ids=None):
     """Shared §4b/§4b-v2 per-lane class state.
 
     ``values`` (B, n) wire values in {0, 1, 2}; ``silent`` (B, n) bool;
     ``faulty``/``honest`` (B, n), read under ``adaptive_min`` and the
     two-faced pairing, which also reads ``seed``, ``inst_ids``, ``rnd`` and
     the step ``t`` to draw its class values. Returns
-    ``(own_val, m, st, L, D)``: the (B, n) own wire value, the per-lane live
-    class counts ``m[w]`` (B, n) int32 over senders ``u != v``, the stratum
-    flags ``st[w]`` (bool, broadcastable to (B, n); ``None`` without strata),
+    ``(own_val, m, st, L, D)``: the (B, R) own wire value, the per-lane live
+    class counts ``m[w]`` (B, R) int32 over senders ``u != v``, the stratum
+    flags ``st[w]`` (bool, broadcastable to (B, R); ``None`` without strata),
     and the urn totals ``L`` (live messages) and ``D`` (drops,
     ``L − (n−f−1)`` floored at 0). Under the two-faced pairing a receiver
     reads the class totals of its own class ``h = v >= (n+1)/2``, and its
@@ -55,15 +55,24 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
     §9 partition side plane: a receiver's urn then holds only the live
     senders of its own side (the class totals split per side and are read by
     the receiver's side), and the own-sender term is subtracted as before.
+    The lanes are the receivers ``recv_ids`` (global indices, a replica
+    shard of the sharded path; default all n, R = n); the class totals
+    range over every sender.
     """
     live = ~silent
-    h_lane = (torch.arange(cfg.n, device=values.device)
-              >= (cfg.n_eff + 1) // 2)[None, :]
+    recv = prf.receivers(cfg, recv_ids, values.device)
+
+    def at_lanes(x):
+        """(B, n) -> (B, R): a plane read at the receiver lanes."""
+        return x if recv_ids is None else x[:, recv]
+
+    h_lane = (recv >= (cfg.n_eff + 1) // 2)[None, :]
     if two_faced(cfg):
         v0c, v1c = byz_class_values(cfg, seed, inst_ids, rnd, t, honest, faulty)
-        own_val = torch.where(h_lane, v1c, v0c)
+        own_val = torch.where(h_lane, at_lanes(v1c), at_lanes(v0c))
     else:
-        v0c = v1c = own_val = values
+        v0c = v1c = values
+        own_val = at_lanes(values)
     sides = (live,) if fside is None else (live & (fside == 0), live & (fside == 1))
 
     def class_total(w):
@@ -78,9 +87,10 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
             per_side.append(total)
         if fside is None:
             return per_side[0]
-        return torch.where(fside == 1, per_side[1], per_side[0])
+        return torch.where(at_lanes(fside) == 1, per_side[1], per_side[0])
 
-    m = [class_total(w) - (live & (own_val == w)).to(torch.int32) for w in (0, 1, 2)]
+    live_at = at_lanes(live)
+    m = [class_total(w) - (live_at & (own_val == w)).to(torch.int32) for w in (0, 1, 2)]
     st = None
     if cfg.adversary == "adaptive":
         # biased(w, v) = (w == 2) | (w != pref(v)), pref(v) = v >= (n+1)/2.
@@ -94,12 +104,13 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
 
 
 def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
-              honest=None, stats=None, stats_lanes=None, fside=None):
+              honest=None, stats=None, stats_lanes=None, fside=None, recv_ids=None):
     """(c0, c1) delivered-value counts per receiver lane — spec §4b.
 
     ``values`` (B, n) wire values, ``silent`` (B, n) bool (validation
     silences included), ``fside`` the §9 partition side plane or ``None``.
-    Returns two (B, n) int32. ``stats``, when a dict,
+    Returns two (B, R) int32 over the receivers ``recv_ids`` (default all
+    n). ``stats``, when a dict,
     gains, each (B,) int64 over the receivers ``stats_lanes`` (default
     all): ``urn_draws``, the draws the law needs (the sum of D);
     ``urn_words``, the receivers with a drop, each one PRF word; and
@@ -111,7 +122,8 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
     is masked, which leaves its counts as the reference's masked tail does.
     """
     own_val, m, st, L, D = lane_setup(cfg, values, silent, faulty, honest,
-                                      seed, inst_ids, rnd, t, fside=fside)
+                                      seed, inst_ids, rnd, t, fside=fside,
+                                      recv_ids=recv_ids)
     if stats is not None:
         lanes = 1 if stats_lanes is None else stats_lanes
         random = D
@@ -122,7 +134,7 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
                          ("urn_random_draws", random)):
             stats[key] = stats.get(key, 0) + (per * lanes).sum(dim=-1, dtype=torch.int64)
     inst = inst_ids.to(torch.int64)[:, None]
-    recv = torch.arange(cfg.n, dtype=torch.int64, device=values.device)[None, :]
+    recv = prf.receivers(cfg, recv_ids, values.device)[None, :]
     s = prf.prf_u32(seed, inst, rnd, t, recv, 0, prf.URN, pack=cfg.pack_version)
     rs, rd = prf.RED_SHIFTS[cfg.pack_version]
     r0, r1, r2 = (x.to(torch.int64) for x in m)

@@ -21,14 +21,16 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.ops import prf, urn
 
 
-def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=None):
+def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=None,
+           recv=None):
     """One §4b-v2 segment: d ~ HG(Lr, m, Dr) via the corner-minimal chain.
 
-    ``m``/``Lr``/``Dr`` are (B, n) int32, non-negative. Returns (B, n) int32
+    ``m``/``Lr``/``Dr`` are (B, R) int32, non-negative, at the (R,) global
+    receiver indices ``recv`` (default 0..R-1). Returns (B, R) int32
     ``d``. ``stats``, when a dict, gains this segment's work per instance,
     (B,) int64 each: ``chain_trips`` (draws, the sum of K) and
     ``chain_seeds`` (lanes with K > 0, which need the segment's PRF word),
-    over the (B, n) bool ``lanes`` whose counts are read (default all).
+    over the (B, R) bool ``lanes`` whose counts are read (default all).
     """
     comp = Lr - m
     is_item = (m <= comp) & (m <= Dr)
@@ -43,8 +45,9 @@ def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=Non
             stats[name] = stats.get(name, 0) + per_lane.sum(dim=-1, dtype=torch.int64)
 
     inst = inst_ids.to(torch.int64)[:, None]
-    recv = torch.arange(m.shape[1], dtype=torch.int64, device=m.device)[None, :]
-    s = prf.prf_u32(seed, inst, rnd, t, recv, seg, prf.URN2, pack=pack)
+    if recv is None:
+        recv = torch.arange(m.shape[1], dtype=torch.int64, device=m.device)
+    s = prf.prf_u32(seed, inst, rnd, t, recv[None, :], seg, prf.URN2, pack=pack)
     s = s.expand(m.shape).contiguous()
     a = torch.zeros_like(s)
     Lr64 = Lr.to(torch.int64)
@@ -61,12 +64,13 @@ def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=Non
 
 
 def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
-              honest=None, stats=None, stats_lanes=None, fside=None):
+              honest=None, stats=None, stats_lanes=None, fside=None, recv_ids=None):
     """(c0, c1) delivered-value counts per receiver lane — spec §4b-v2.
 
     ``values`` (B, n) wire values, ``silent`` (B, n) bool (validation
-    silences included). Returns two (B, n) int32. The receiver's own value
-    is added back: the urn ranges over the other senders only. ``faulty``
+    silences included). Returns two (B, R) int32 over the receivers
+    ``recv_ids`` (default all n). The receiver's own value is added back:
+    the urn ranges over the other senders only. ``faulty``
     and ``honest`` feed :func:`ops.urn.lane_setup` (adaptive_min's minority
     and the two-faced class values); ``fside`` is the §9 partition side
     plane or ``None``.
@@ -79,7 +83,9 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
     that runs, over the receivers ``stats_lanes`` (default all).
     """
     own_val, m, st, L, D = urn.lane_setup(cfg, values, silent, faulty, honest,
-                                          seed, inst_ids, rnd, t, fside=fside)
+                                          seed, inst_ids, rnd, t, fside=fside,
+                                          recv_ids=recv_ids)
+    recv = prf.receivers(cfg, recv_ids, values.device)
     d = [torch.zeros_like(m[0]), torch.zeros_like(m[0])]
     mu, Lr, Dr = m[:2], L, D
     if st is not None:
@@ -89,14 +95,14 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
         Lr, Dr = Lb, Db
         for w in (0, 1):
             d[w] = _chain(seed, inst_ids, rnd, t, w, mb[w], Lr, Dr,
-                          pack=cfg.pack_version, stats=stats, lanes=stats_lanes)
+                          pack=cfg.pack_version, stats=stats, lanes=stats_lanes, recv=recv)
             Lr = Lr - mb[w]
             Dr = Dr - d[w]
         mu = [m[w] - mb[w] for w in (0, 1)]
         Lr, Dr = L - Lb, D - Db
     for w in (0, 1):
         du = _chain(seed, inst_ids, rnd, t, 2 + w, mu[w], Lr, Dr,
-                    pack=cfg.pack_version, stats=stats, lanes=stats_lanes)
+                    pack=cfg.pack_version, stats=stats, lanes=stats_lanes, recv=recv)
         d[w] = d[w] + du
         Lr = Lr - mu[w]
         Dr = Dr - du

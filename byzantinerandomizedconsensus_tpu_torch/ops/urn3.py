@@ -81,20 +81,22 @@ def count_work(stats, name: str, D: torch.Tensor, strata: bool, lanes=None) -> N
 
 
 def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
-              honest=None, stats=None, stats_lanes=None, fside=None):
+              honest=None, stats=None, stats_lanes=None, fside=None, recv_ids=None):
     """(c0, c1) delivered-value counts per receiver lane — spec §4c.
 
     The same class and stratum state as §4b and §4b-v2
     (:func:`ops.urn.lane_setup`); only the drop law differs. ``stats``, when
     a dict, gains ``urn3_words`` and ``cheap_segments`` (:func:`count_work`)
-    over the receivers ``stats_lanes``.
+    over the receivers ``stats_lanes``. The lanes are the receivers
+    ``recv_ids`` (default all n).
     """
     own_val, m, st, L, D = urn.lane_setup(cfg, values, silent, faulty, honest,
-                                          seed, inst_ids, rnd, t, fside=fside)
+                                          seed, inst_ids, rnd, t, fside=fside,
+                                          recv_ids=recv_ids)
     if stats is not None:
         count_work(stats, "urn3_words", D, st is not None, stats_lanes)
     inst = inst_ids.to(torch.int64)[:, None]
-    recv = torch.arange(cfg.n, dtype=torch.int64, device=values.device)[None, :]
+    recv = prf.receivers(cfg, recv_ids, values.device)[None, :]
     u = prf.prf_u32(seed, inst, rnd, t, recv, 0, prf.URN3, pack=cfg.pack_version)
     d0, d1 = cheap_split(u, m, st, L, D)
     c0 = m[0] - d0 + (own_val == 0).to(torch.int32)

@@ -23,36 +23,46 @@ Counterpart of the reference ``ops/pallas_urn.py`` (the TPU kernel
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.ops import _step, urn
 
-#: Launches of the CUDA kernel since the count was last set to 0.
+#: Launches of the CUDA kernel since the count was last set to 0 (the
+#: sharded path's shard threads add under :data:`_count_lock`).
 launches = 0
+_count_lock = threading.Lock()
 
 #: The plain version: ``ops/urn.py::counts_fn`` (``stats`` gains its work counters).
 step_counts_plain = urn.counts_fn
 
 
-def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest):
-    """The round body's delivery hook (models/delivery.py)."""
-    return step_counts(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest)
+def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest,
+              recv_ids=None):
+    """The round body's delivery hook (models/delivery.py). ``recv_ids``, a
+    contiguous receiver shard, maps to the kernel's receiver offset, as in
+    the reference's adapter (``pallas_urn.py:202-207``)."""
+    return step_counts(cfg, seed, inst_ids, rnd, t, values, silent, faulty, honest,
+                       recv_ids)
 
 
 def step_counts(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
                 values: torch.Tensor, silent: torch.Tensor, faulty: torch.Tensor,
-                honest: torch.Tensor):
-    """(c0, c1) for one broadcast step through the CUDA kernel; CPU tensors
-    run :func:`step_counts_plain`. The kernel takes adaptive_min's minority
-    from the non-faulty wire values, which are the honest ones, and under
-    Ben-Or's Byzantine pairing the wire values are the honest ones, so it
-    does not read ``honest``."""
+                honest: torch.Tensor, recv_ids=None):
+    """(c0, c1) for one broadcast step through the CUDA kernel, (B, R) over
+    the receivers ``recv_ids`` (a contiguous range of global indices,
+    default all n); CPU tensors run :func:`step_counts_plain`. The kernel
+    takes adaptive_min's minority from the non-faulty wire values, which
+    are the honest ones, and under Ben-Or's Byzantine pairing the wire
+    values are the honest ones, so it does not read ``honest``."""
     global launches
     _step.check_step_supported(cfg)
     if inst_ids.device.type == "cpu":
         return step_counts_plain(cfg, seed, inst_ids, rnd, step, values, silent,
-                                 faulty, honest)
+                                 faulty, honest, recv_ids=recv_ids)
     out = _step.launch("urn_step", cfg, seed, inst_ids, rnd, step, values,
-                       silent, faulty)
-    launches += 1
+                       silent, faulty, *_step.receiver_range(cfg, recv_ids))
+    with _count_lock:
+        launches += 1
     return out

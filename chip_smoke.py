@@ -97,7 +97,22 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``fused_round``) with its walls, the kernel's device time (a per-step
    run's launches in one CUDA graph), the plain version's time, the bound
    and kernel/bound, failing if a kernel beats its bound;
-11. a ``{"kernels": [...]}`` line, the card line, and last
+11. the replica-sharded path (``parallel/sharded.py``): ``keys_step`` and
+   ``urn_step`` on receiver ranges against their plain versions and their
+   own full width at every step of a grid (n = 16 in the ranges 0-4, 5-10,
+   11-15, both protocols × every static adversary; n = 2048 in four
+   shards); config4 under keys and under urn at 100,000 instances through
+   ``TorchShardedBackend(kernel="step")`` on the layouts (1, 4) and (2, 2),
+   four shards of the one card, per instance against the unsharded step
+   run and on ids 0-1999 against plain; the two
+   ``sharded_bitmatch_virtual_2x2_n2048`` legs of ``artifacts/n2048_r7.json``
+   through ``virtual:2x2`` and the (2, 2) mesh's plain path against the
+   unsharded run; config4 through the mesh with ``kernel="fused"`` (data
+   axis only) against the unsharded fused run; timed at (1, 4): the walls,
+   each kernel's device time a sharded run and a launch at n_recv = 128
+   against its bound for that shard, and the barrier overhead (the wall
+   less the kernel time);
+12. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -210,6 +225,18 @@ LAW_GRID_ROUNDS = 2
 # The plain version on config4 under keys, ids 0..PLAIN_KEYS_IDS-1: its
 # (B, n, n) keys make all 100,000 instances take minutes.
 PLAIN_KEYS_IDS = 2000
+
+# Phase 11, the replica-sharded path on one card: the layouts config4 runs
+# on (four shards of the card each), the one timed, the receiver ranges of
+# the per-step grid (n = 16, not aligned with the kernels' tiles, one
+# across the two-faced class boundary 8) and its v2 width in four shards,
+# and the plain version's ids.
+MESH_LAYOUTS = ((1, 4), (2, 2))
+MESH_TIMED = (1, 4)
+MESH_DEVICES = 4
+OFFSET_RANGES = ((0, 5), (5, 11), (11, 16))
+OFFSET_V2_N, OFFSET_V2_MODEL = 2048, 4
+MESH_PLAIN_IDS = 2000
 
 # The goldens of spec/golden/golden.npz on the per-step surface, with the
 # configs of spec/golden/regen.py (delivery "keys" is SimConfig's default).
@@ -463,11 +490,13 @@ def step_module(law):
     return {"keys": keys_step, "urn": urn_step}[law]
 
 
-def plain_step(law, cfg, seed, ids, rnd, t, values, silent, faulty, honest):
+def plain_step(law, cfg, seed, ids, rnd, t, values, silent, faulty, honest, recv_ids=None):
     mod = step_module(law)
     if law == "keys":
-        return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty)
-    return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+        return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty,
+                                     recv_ids=recv_ids)
+    return mod.step_counts_plain(cfg, seed, ids, rnd, t, values, silent, faulty, honest,
+                                 recv_ids=recv_ids)
 
 
 def step_counts_max_err(a, b) -> int:
@@ -567,11 +596,12 @@ def recorded_launches(cfg, law, dev):
 
 
 def crossing_pairs(cfg, values: torch.Tensor, silent: torch.Tensor,
-                   faulty: torch.Tensor) -> int:
+                   faulty: torch.Tensor, rows=slice(None)) -> int:
     """The PRF words one keys step needs on these planes: for each receiver
-    row, the senders of its crossing class other than itself, and none where
-    every live key is selected (``csrc/keys_step.cuh::row_plan``). The
-    classes come from the wire values alone, so this count needs no hashing.
+    row (of ``rows``, default all), the senders of its crossing class other
+    than itself, and none where every live key is selected
+    (``csrc/keys_step.cuh::row_plan``). The classes come from the wire
+    values alone, so this count needs no hashing.
     """
     from byzantinerandomizedconsensus_tpu_torch.models.adversaries import scheduling_bias
 
@@ -587,64 +617,71 @@ def crossing_pairs(cfg, values: torch.Tensor, silent: torch.Tensor,
     m1 = m1 - (live & own_bias).long()
     hashed = torch.where(k < m0, m0 - 1,
                          torch.where((k > m0) & (k < m0 + m1), m1, torch.zeros_like(m1)))
-    return int(hashed.sum())
+    return int(hashed.expand(B, n)[:, rows].sum())
 
 
 def urn_draws(cfg, seed, ids, rnd, t, values: torch.Tensor, silent: torch.Tensor,
-              faulty: torch.Tensor, honest: torch.Tensor):
+              faulty: torch.Tensor, honest: torch.Tensor, recv_ids=None):
     """(draws, PRF words, drops) of one urn step on these planes, from the
     plain version's work counters (``ops/urn.py::counts_fn``): the
     receivers with D > 0 need a PRF word each; two strata draw min(D, B0)
     per receiver, B0 being its live biased messages other than its own, and
-    one stratum D (``csrc/urn_step.cuh::urn_counts``); drops is the sum of D."""
+    one stratum D (``csrc/urn_step.cuh::urn_counts``); drops is the sum of D.
+    Over the receivers ``recv_ids`` (default all)."""
     from byzantinerandomizedconsensus_tpu_torch.ops import urn
 
     stats = {}
-    urn.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest, stats=stats)
+    urn.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest, stats=stats,
+                  recv_ids=recv_ids)
     return (int(stats["urn_random_draws"].sum()), int(stats["urn_words"].sum()),
             int(stats["urn_draws"].sum()))
 
 
-def equivocation_words(cfg, call) -> int:
+def equivocation_words(cfg, call, recv_ids=None) -> int:
     """The PRF words of Ben-Or's Byzantine pairing in one keys step: one per
     (receiver, delivered faulty sender) pair, own message included, from the
-    plain version's counter (0 under any other adversary)."""
+    plain version's counter (0 under any other adversary), over the
+    receivers ``recv_ids`` (default all)."""
     from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
     from byzantinerandomizedconsensus_tpu_torch.ops import keys_step
 
     if not two_faced(cfg):
         return 0
     stats = {}
-    keys_step.step_counts_plain(cfg, *call[:7], stats=stats)
+    keys_step.step_counts_plain(cfg, *call[:7], stats=stats, recv_ids=recv_ids)
     return stats["equivocation_words"]
 
 
-def step_bound(law, cfg, call):
+def step_bound(law, cfg, call, recv_ids=None):
     """(operations, bytes, PRF words, the earlier count's operations) the
-    step must do on these inputs. Under Ben-Or's Byzantine pairing the keys
-    step adds a word per delivered faulty (receiver, sender) pair, the urn
-    step two per faulty sender (its two class values)."""
+    step must do on these inputs, for the receivers ``recv_ids`` (a
+    contiguous range, default all: a shard reads every sender's planes and
+    writes its own rows). Under Ben-Or's Byzantine pairing the keys step
+    adds a word per delivered faulty (receiver, sender) pair, the urn step
+    two per faulty sender (its two class values)."""
     from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
 
     seed, ids, rnd, t, values, silent, faulty, honest = call
     B, n = values.shape
+    rows = slice(None) if recv_ids is None else slice(int(recv_ids[0]), int(recv_ids[-1]) + 1)
+    n_recv = n if recv_ids is None else len(recv_ids)
     if law == "keys":
-        words = crossing_pairs(cfg, values, silent, faulty)
+        words = crossing_pairs(cfg, values, silent, faulty, rows)
         tables = 2 if cfg.adversary == "adaptive" else 1
         ops = words * (OPS_PER_PRF_WORD + OPS_PER_KEY) + B * n * tables
-        equiv = equivocation_words(cfg, call)
+        equiv = equivocation_words(cfg, call, recv_ids)
         ops += equiv * OPS_PER_PRF_WORD
-        nbytes = B * (4 + 3 * n + 8 * n)
+        nbytes = B * (4 + 3 * n + 8 * n_recv)
         return ops, nbytes, words + equiv, ops
-    draws, words, drops = urn_draws(cfg, *call)
+    draws, words, drops = urn_draws(cfg, *call, recv_ids=recv_ids)
     if two_faced(cfg):
         words += 2 * int(faulty.sum())
     per_draw = (OPS_PER_URN_DRAW if cfg.adversary in ("adaptive", "adaptive_min")
                 else OPS_PER_SINGLE_URN_DRAW)
     ops = words * OPS_PER_PRF_WORD + draws * per_draw
-    earlier = B * n * OPS_PER_PRF_WORD + drops * EARLIER_OPS_PER_URN_DRAW
+    earlier = B * n_recv * OPS_PER_PRF_WORD + drops * EARLIER_OPS_PER_URN_DRAW
     planes = 3 if cfg.adversary == "adaptive_min" else 2
-    nbytes = B * (4 + planes * n + 8 * n)
+    nbytes = B * (4 + planes * n + 8 * n_recv)
     return ops, nbytes, words, earlier
 
 
@@ -1681,6 +1718,209 @@ def laws_phase(dev, card):
     return k1_paths, libs, k2_paths, k3_paths
 
 
+def offset_grid(law):
+    """Phase 11's per-step grid of receiver ranges: n = 16 with ranges that
+    do not align with the kernels' tiles (the two-faced class boundary
+    (n+1)/2 = 8 inside one), both protocols under every static adversary;
+    and a v2 width, n = 2048 in four shards."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    out = []
+    for protocol, adversary in (("bracha", "none"), ("bracha", "adaptive"),
+                                ("bracha", "adaptive_min"), ("bracha", "byzantine"),
+                                ("benor", "crash"), ("benor", "byzantine"),
+                                ("benor", "adaptive")):
+        out.append((SimConfig(protocol=protocol, n=16, f=f_of(protocol, 16, adversary),
+                              instances=256, adversary=adversary, delivery=law,
+                              coin="local" if protocol == "benor" else "shared",
+                              round_cap=LAW_GRID_ROUNDS, seed=len(out) + 211).validate(),
+                    OFFSET_RANGES))
+    quarter = OFFSET_V2_N // OFFSET_V2_MODEL
+    shards = tuple((m * quarter, (m + 1) * quarter) for m in range(OFFSET_V2_MODEL))
+    for protocol, adversary in (("bracha", "adaptive"), ("benor", "byzantine")):
+        out.append((SimConfig(protocol=protocol, n=OFFSET_V2_N,
+                              f=f_of(protocol, OFFSET_V2_N, adversary), instances=64,
+                              adversary=adversary, delivery=law, coin="shared",
+                              round_cap=LAW_GRID_ROUNDS, seed=len(out) + 211).validate(),
+                    shards))
+    return out
+
+
+def offset_checking_counts_fn(law, ranges, seen):
+    """A delivery hook that runs the kernel at full width and on each
+    receiver range, the plain version on each range, fails on any
+    difference (range against plain and against the full width's rows), and
+    returns the full width's counts. The ranges' ids are CPU tensors, so
+    reading the offset does not wait for the card."""
+    mod = step_module(law)
+
+    def counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest):
+        full = mod.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest)
+        for lo, hi in ranges:
+            recv = torch.arange(lo, hi)
+            got = mod.counts_fn(cfg, seed, ids, rnd, t, values, silent, faulty, honest,
+                                recv_ids=recv)
+            want = plain_step(law, cfg, seed, ids, rnd, t, values, silent, faulty, honest,
+                              recv_ids=recv)
+            err = max(step_counts_max_err(got, want),
+                      step_counts_max_err(got, (full[0][:, lo:hi], full[1][:, lo:hi])))
+            if err != 0:
+                fail(f"{STEP_LAWS[law]} on receivers [{lo}, {hi}) differs from plain on "
+                     f"{cfg}, round {rnd}, step {t}: max abs err {err}")
+            seen["steps"] += 1
+        return full
+
+    return counts_fn
+
+
+def mesh_cell(cfg, law, label, backend, ref, card, dev):
+    """The timed cell of the (1, 4) layout: best of 3 walls (the counted run
+    was the warm-up); every launch of the unsharded run recorded and
+    replayed on each shard's receiver range: the kernel's device time of a
+    whole sharded run (its 4 × launches in one CUDA graph) and of one launch
+    at n_recv = 128 (shard 1's range), that launch's bound from the same
+    counts as phase 10 over its rows, and the barrier overhead: the best
+    wall less the kernel's time a run. Fails if the kernel beats its
+    bound."""
+    name = STEP_LAWS[law]
+    n_model = backend.mesh.shape["model"]
+    walls = [backend.timed_run(cfg).wall_s for _ in range(EARLIER_WALLS)]
+    calls = recorded_launches(cfg, law, dev)
+    mod = step_module(law)
+    width = cfg.n // n_model
+    ranges = [torch.arange(m * width, (m + 1) * width) for m in range(n_model)]
+    run_ms = graph_run_ms([lambda c=call, r=r: mod.counts_fn(cfg, *c, recv_ids=r)
+                           for call in calls for r in ranges])
+    shard = ranges[1]
+    launch_ms = graph_run_ms([lambda c=call: mod.counts_fn(cfg, *c, recv_ids=shard)
+                              for call in calls]) / len(calls)
+    err, plain_ms, bound_ms, ops_sum, bytes_sum = 0, 0.0, 0.0, 0.0, 0.0
+    plain_ids = MESH_PLAIN_IDS if law == "keys" else None
+    for call in calls:
+        got = mod.counts_fn(cfg, *call, recv_ids=shard)
+        seed, ids, rnd, t, *planes = call
+        if plain_ids is not None:
+            ids, planes = ids[:plain_ids], [x[:plain_ids] for x in planes]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_step(law, cfg, seed, ids, rnd, t, *planes, recv_ids=shard)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        k = want[0].shape[0]
+        err = max(err, step_counts_max_err((got[0][:k], got[1][:k]), want))
+        o, b, _, _ = step_bound(law, cfg, call, shard)
+        o_ms, b_ms = o / INT_OPS_PER_S * 1e3, b / HBM_BYTES_PER_S * 1e3
+        bound_ms += max(o_ms, b_ms)
+        ops_sum, bytes_sum = ops_sum + o_ms, bytes_sum + b_ms
+    n_calls = len(calls)
+    bound_ms /= n_calls
+    if err != 0:
+        fail(f"{name} on receivers 128-255 differs from plain on {label} (max abs err {err})")
+    if launch_ms < bound_ms:
+        fail(f"{name} took {launch_ms:.5f} ms a launch at n_recv = {width} on {label}, "
+             f"under its bound of {bound_ms:.5f} ms: the bound's count is wrong")
+    overhead_ms = min(walls) * 1e3 - run_ms
+    on = "" if plain_ids is None else f" on ids 0-{plain_ids - 1}"
+    say(f"[mesh] {label} through {name}: instances/s = {cfg.instances / min(walls)} (best of "
+        f"{EARLIER_WALLS} walls {walls} s; unsharded wall {ref.wall_s} s); {name} "
+        f"{run_ms:.4f} ms of device time a sharded run ({n_calls} steps x {n_model} shards "
+        f"in one CUDA graph); {launch_ms:.5f} ms a launch at n_recv = {width} (receivers "
+        f"{width}-{2 * width - 1}), bound {bound_ms:.5f} ms, kernel/bound "
+        f"{launch_ms / bound_ms:.2f}; plain {plain_ms / n_calls:.1f} ms a step{on}; barrier "
+        f"and driver overhead {overhead_ms:.1f} ms a run (best wall less the kernel time); "
+        f"{card}")
+    return {"config": label, "kernel": name, "layout": [backend.mesh.shape["data"], n_model],
+            "instances": cfg.instances, "launches": None, "max_abs_err": err,
+            "ms": launch_ms, "ms_run": run_ms, "n_recv": width, "plain_ms": plain_ms / n_calls,
+            "plain_ids": plain_ids, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_sum >= bytes_sum else "bytes",
+            "walls_s": walls, "unsharded_wall_s": ref.wall_s,
+            "overhead_ms": overhead_ms, "instances_per_s": cfg.instances / min(walls)}
+
+
+def mesh_phase(dev, card):
+    """Phase 11: the replica-sharded path (``parallel/sharded.py``) on one
+    card. Returns {kernel: [its sharded cells]}."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import sweep_point
+    from byzantinerandomizedconsensus_tpu_torch.models import driver
+    from byzantinerandomizedconsensus_tpu_torch.parallel.mesh import make_mesh
+    from byzantinerandomizedconsensus_tpu_torch.parallel.sharded import TorchShardedBackend
+
+    t0 = time.perf_counter()
+    for law, name in STEP_LAWS.items():
+        t1, seen = time.perf_counter(), {"steps": 0}
+        grid = offset_grid(law)
+        for cfg, ranges in grid:
+            ids = torch.arange(cfg.instances, dtype=torch.int32, device=dev) * 7
+            driver.run_chunk(cfg, ids, counts_fn=offset_checking_counts_fn(law, ranges, seen))
+        say(f"[mesh] {name} with a receiver range == plain and == its full width's rows on "
+            f"{seen['steps']} (step, range) pairs of {len(grid)} configs (n = 16 in ranges "
+            f"{list(OFFSET_RANGES)}, n = {OFFSET_V2_N} in {OFFSET_V2_MODEL} shards; both "
+            f"protocols, every static adversary, rounds 0-{LAW_GRID_ROUNDS - 1}) in "
+            f"{time.perf_counter() - t1:.1f} s")
+
+    cells = {}
+    step, plain = get_backend("torch", kernel="step"), get_backend("torch", kernel="plain")
+    for law, name in STEP_LAWS.items():
+        cfg = preset("config4", delivery=law)
+        ref, _ = run_counted(step, cfg, name, f"config4 {law} (unsharded)")
+        ref = step.timed_run(cfg)
+        pres = plain.run(cfg, inst_ids=np.arange(MESH_PLAIN_IDS))
+        k = len(pres.inst_ids)
+
+        def head(res):
+            return types.SimpleNamespace(inst_ids=res.inst_ids[:k], rounds=res.rounds[:k],
+                                         decision=res.decision[:k])
+
+        check_equal_results(head(ref), pres, f"config4 {law}: unsharded {name} and plain")
+        for layout in MESH_LAYOUTS:
+            label = f"config4 {law} mesh {layout[0]}x{layout[1]}"
+            backend = TorchShardedBackend(mesh=make_mesh(*layout, [dev] * MESH_DEVICES),
+                                          kernel="step")
+            res, launches = run_counted(backend, cfg, name, f"{label} ({name})")
+            check_equal_results(ref, res, f"{label}: sharded and unsharded {name}")
+            check_equal_results(head(res), pres, f"{label}: sharded {name} and plain")
+            say(f"[mesh] {label} ({cfg.instances} instances) through {name} with receiver "
+                f"offsets: == the unsharded {name} run per instance, ids 0-{k - 1} == plain; "
+                f"{launches} launches; wall {res.wall_s} s; "
+                f"{histogram_fields(res)['decision_histogram']}")
+            if layout == MESH_TIMED:
+                cell = mesh_cell(cfg, law, label, backend, ref, card, dev)
+                cell["launches"] = launches
+                cells.setdefault(name, []).append(cell)
+
+    n2048 = json.loads((ROOT / N2048_FILE).read_text())["sharded_bitmatch_virtual_2x2_n2048"]
+    fused = get_backend("torch")
+    for leg in n2048:
+        if not leg["match"]:
+            fail(f"{N2048_FILE}'s virtual leg {leg} does not record a match")
+        cfg = dataclasses.replace(sweep_point(2048, instances=leg["instances"]),
+                                  delivery=leg["delivery"]).validate()
+        want = fused.run(cfg)
+        for label, backend in (("virtual:2x2", get_backend("virtual:2x2")),
+                               ("torch_sharded 2x2 plain", TorchShardedBackend(
+                                   mesh=make_mesh(2, 2, [dev] * 4), kernel="plain"))):
+            check_equal_results(want, backend.run(cfg),
+                                f"{N2048_FILE} leg {leg['delivery']} through {label}")
+        say(f"[mesh] {N2048_FILE} leg {leg['mesh']} {leg['delivery']} n=2048 "
+            f"({leg['instances']} instances, match: true): virtual:2x2 (CPU) and "
+            f"torch_sharded 2x2 plain (card) == the unsharded fused_round run")
+
+    cfg = preset("config4")
+    ref, _ = run_counted(fused, cfg, "fused_round", "config4 (unsharded fused_round)")
+    backend = TorchShardedBackend(mesh=make_mesh(2, 2, [dev] * 4), kernel="fused")
+    res, launches = run_counted(backend, cfg, "fused_round", "config4 mesh 2x2 fused")
+    check_equal_results(ref, res, "config4 mesh 2x2: sharded and unsharded fused_round")
+    if launches != 2:
+        fail(f"config4 mesh 2x2 fused: {launches} launches of fused_round, not one per "
+             f"data shard")
+    say(f"[mesh] config4 mesh 2x2 through fused_round (data axis only: {launches} launches, "
+        f"one per data shard) == the unsharded run per instance on {cfg.instances} instances")
+    say(f"[mesh] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return cells
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1847,6 +2087,10 @@ def main() -> int:
             "bound_ms": p["bound_ms_per_launch"] if step else p["bound_ms"],
             "bound_by": p["bound_by"], "library_ms": None,
         })
+
+    # Phase 11: the replica-sharded path through K2 and K3 with receiver offsets.
+    for kernel, cells in mesh_phase(dev, card).items():
+        by_name[kernel]["mesh_paths"] = cells
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -63,9 +63,10 @@ SOURCES = {
 #: The function whose SASS ``--sass`` compares, as a part of its mangled
 #: name in the earlier build and in the current one: config 5's
 #: instantiation of each step kernel (packing law v1, no equivocation; the
-#: keys kernel became a template on (PACK, EQUIV)), config4's of fused_round.
+#: earlier version compared is one where the keys kernel is already a
+#: template on (PACK, EQUIV)), config4's of fused_round.
 SASS_FUNCTIONS = {
-    "keys_step": ("keys_step_kernelE", "keys_step_kernelILi1ELb0EE"),
+    "keys_step": ("keys_step_kernelILi1ELb0EE", "keys_step_kernelILi1ELb0EE"),
     "urn_step": ("urn_step_kernelE", "urn_step_kernelE"),
     "fused_round": ("fused_round_kernelILi1ELi0ELi0EE", "fused_round_kernelILi1ELi0ELi0EE"),
 }

@@ -2,7 +2,9 @@
 version, under every §9 fault schedule, and on its urn, urn3 and committee
 laws in each layout (n ≤ 1024, n ≤ 4096, past 4096); the per-step keys and
 urn kernels against theirs on both protocols, every static adversary and
-both packing laws. Each test needs a card, is marked
+both packing laws; the replica-sharded mesh (``parallel/sharded.py``)
+through the per-step kernels with receiver offsets and through the fused
+kernel, against the unsharded kernels. Each test needs a card, is marked
 ``cuda`` and skips by name without one; this file imports only the port,
 so it runs where JAX is not installed:
 
@@ -16,6 +18,8 @@ from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
 from byzantinerandomizedconsensus_tpu_torch.config import SimConfig, committee_point
 from byzantinerandomizedconsensus_tpu_torch.models import driver
 from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, keys_step, urn_step
+from byzantinerandomizedconsensus_tpu_torch.parallel.mesh import make_mesh
+from byzantinerandomizedconsensus_tpu_torch.parallel.sharded import TorchShardedBackend
 
 KINDS = ("none", "recover", "partition", "omission")
 
@@ -104,3 +108,23 @@ def test_step_kernels_match_plain_on_both_protocols_and_packs(card, law, protoco
     got = driver.run_chunk(cfg, ids, counts_fn=kernel.counts_fn)
     want = driver.run_chunk(cfg, ids)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["keys", "urn"])
+@pytest.mark.parametrize("layout", [(1, 4), (2, 2)])
+def test_step_mesh_matches_the_unsharded_kernel(card, law, layout):
+    cfg = SimConfig(protocol="bracha", n=64, f=21, instances=64, adversary="adaptive",
+                    coin="shared", delivery=law, round_cap=16).validate()
+    got = TorchShardedBackend(mesh=make_mesh(*layout, [card] * 4), kernel="step").run(cfg)
+    want = get_backend("torch", kernel="step").run(cfg)
+    assert (got.rounds == want.rounds).all() and (got.decision == want.decision).all()
+
+
+@pytest.mark.cuda
+def test_fused_mesh_matches_the_unsharded_kernel(card):
+    cfg = SimConfig(protocol="bracha", n=64, f=21, instances=64, coin="shared",
+                    delivery="urn2", round_cap=16).validate()
+    got = TorchShardedBackend(mesh=make_mesh(2, 2, [card] * 4), kernel="fused").run(cfg)
+    want = get_backend("torch").run(cfg)
+    assert (got.rounds == want.rounds).all() and (got.decision == want.decision).all()

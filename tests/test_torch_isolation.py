@@ -52,5 +52,6 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert '"decision_histogram"' in lines[0]
-    for module in ("ops.fused_round", "ops.urn3", "ops.committee", "models.committee"):
+    for module in ("ops.fused_round", "ops.urn3", "ops.committee", "models.committee",
+                   "parallel.mesh", "parallel.sharded", "parallel.virtual"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]

@@ -594,3 +594,65 @@ def test_crossing_pairs_counts_the_kernels_prf_words(n, f, adversary):
         want = chip_smoke.crossing_pairs(cfg, *(torch.as_tensor(x) for x in
                                                (values, silent.astype(bool), faulty.astype(bool))))
         assert got == want, p_silent
+
+
+def _step_host_shard(name):
+    lib, _ = _step_host(name)
+    fn = getattr(lib, f"brc_host_{name}_shard")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_uint32] * 2 + [
+        ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+# (protocol, n, f, adversary, lo, hi): receiver ranges that do not align
+# with the kernels' warps or tiles, across the two-faced class boundary
+# (n+1)/2, and a shard of packing law v2.
+SHARD_HOST_CASES = [("bracha", 16, 5, "adaptive", 5, 11), ("benor", 16, 3, "byzantine", 0, 5),
+                    ("benor", 16, 3, "byzantine", 5, 11), ("benor", 16, 7, "crash", 11, 16),
+                    ("bracha", 64, 21, "adaptive_min", 10, 50),
+                    ("bracha", 200, 66, "byzantine", 150, 200),
+                    ("benor", 1100, 219, "byzantine", 300, 700)]
+
+
+@pytest.mark.parametrize("protocol,n,f,adversary,lo,hi", SHARD_HOST_CASES,
+                         ids=[f"{c[0]}-n{c[1]}-{c[3]}-{c[4]}-{c[5]}" for c in SHARD_HOST_CASES])
+@pytest.mark.parametrize("name", ["keys_step", "urn_step"])
+def test_step_kernel_host_shard_matches_plain(name, protocol, n, f, adversary, lo, hi):
+    """The kernels' per-thread arithmetic over a receiver range (the
+    receiver offset ``recv_offset`` and ``n_recv``, ``brc_host_*_shard``)
+    against the plain version with ``recv_ids`` and against the host
+    build's own full width."""
+    fn = _step_host_shard(name)
+    cfg = SimConfig(protocol=protocol, n=n, f=f, instances=60_000, adversary=adversary,
+                    delivery={"keys_step": "keys", "urn_step": "urn"}[name]).validate()
+    rng = np.random.default_rng(n + lo)
+    B, R = 2, hi - lo
+    ids = rng.choice(cfg.instances, B, replace=False).astype(np.int32)
+    honest = rng.integers(0, 3, (B, n)).astype(np.uint8)
+    faulty = rng.random((B, n)) < 0.3
+    values = honest if adversaries.two_faced(cfg) else np.where(
+        faulty, rng.integers(0, 2, (B, 1)), honest).astype(np.uint8)
+    silent = rng.random((B, n)) < 0.15
+    sil8, fa8 = silent.astype(np.uint8), faulty.astype(np.uint8)
+    k0, k1 = 0x01234567, 0x89ABCDEF
+    for rnd, t in ((0, 0), (7, 2)):
+        out = {}
+        for off, width in ((lo, R), (0, n)):
+            c0 = np.empty((B, width), np.int32)
+            c1 = np.empty((B, width), np.int32)
+            fn(ids.ctypes.data, values.ctypes.data, sil8.ctypes.data, fa8.ctypes.data,
+               c0.ctypes.data, c1.ctypes.data, B, n, f, rnd, t, _step.adversary_code(cfg),
+               k0, k1, off, width)
+            out[width] = (c0, c1)
+        planes = [torch.as_tensor(x) for x in (values, silent, faulty)]
+        recv = torch.arange(lo, hi)
+        if name == "keys_step":
+            want = keys_step.step_counts_plain(cfg, (k0, k1), torch.as_tensor(ids), rnd, t,
+                                               *planes, recv_ids=recv)
+        else:
+            want = urn_step.step_counts_plain(cfg, (k0, k1), torch.as_tensor(ids), rnd, t,
+                                              *planes, torch.as_tensor(honest), recv_ids=recv)
+        for got, w, full in zip(out[R], want, out[n]):
+            np.testing.assert_array_equal(got, w.numpy(), err_msg=f"round {rnd} step {t}")
+            np.testing.assert_array_equal(got, full[:, lo:hi])

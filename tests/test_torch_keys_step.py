@@ -341,3 +341,57 @@ def test_unsupported_surface_raises_step_unsupported_by_name(fields, named):
             call()
         assert named in str(e.value)
         assert "surface is protocol in ('benor', 'bracha')" in str(e.value)
+
+
+def assert_receiver_ranges_match_pallas(law, cfg, lo, hi, pallas_interpret):
+    """One step on random planes over the receivers [lo, hi): the port's
+    hook with ``recv_ids`` (on the CPU, the plain version) against the
+    reference's Pallas kernel with ``recv_ids`` in interpret mode (the
+    receiver offset of ``pallas_tally.py:148`` / ``pallas_urn.py:80``) and
+    against the rows [lo, hi) of the port's full width."""
+    from byzantinerandomizedconsensus_tpu.ops import pallas_tally, pallas_urn
+    from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
+    from byzantinerandomizedconsensus_tpu_torch.ops import urn_step
+
+    rng = np.random.default_rng(cfg.n + lo)
+    B, n = 6, cfg.n
+    inst = rng.choice(50_000, B, replace=False).astype(np.uint32)
+    honest = rng.integers(0, 3, (B, n)).astype(np.uint8)
+    faulty = rng.random((B, n)) < 0.25
+    minority = rng.integers(0, 2, (B, 1)).astype(np.uint8)
+    values = honest if two_faced(cfg) else np.where(faulty, minority, honest).astype(np.uint8)
+    silent = rng.random((B, n)) < 0.15
+    port = {"keys": keys_step, "urn": urn_step}[law].counts_fn
+    ref = {"keys": pallas_tally, "urn": pallas_urn}[law].counts_fn
+    tplanes = [torch.as_tensor(x) for x in (values, silent, faulty, honest)]
+    for rnd, t in ((3, 1),):
+        want = ref(_ref(cfg), cfg.seed, jnp.asarray(inst), rnd, t, jnp.asarray(values),
+                   jnp.asarray(silent), jnp.asarray(faulty), jnp.asarray(honest),
+                   recv_ids=jnp.arange(lo, hi, dtype=jnp.uint32), interpret=pallas_interpret)
+        ids = torch.as_tensor(inst.astype(np.int32))
+        got = port(cfg, cfg.seed, ids, rnd, t, *tplanes, recv_ids=torch.arange(lo, hi))
+        full = port(cfg, cfg.seed, ids, rnd, t, *tplanes)
+        for g, w, a in zip(got, want, full):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{rnd}, {t}")
+            np.testing.assert_array_equal(g.numpy(), a[:, lo:hi].numpy())
+
+
+# The ranges of tests/test_pallas_step.py:134 (not aligned with any tile;
+# the two-faced class boundary (n+1)/2 = 8 inside the second) on Ben-Or's
+# Byzantine pairing, the adaptive family and crash at n = 16, and one shard
+# of packing law v2 (n = 1100 in four).
+RANGE_CASES = ([(dict(protocol=p, n=16, f=f, adversary=a), lo, hi)
+                for p, f, a in (("benor", 3, "byzantine"), ("bracha", 5, "adaptive"),
+                                ("benor", 7, "crash"), ("bracha", 5, "adaptive_min"))
+                for lo, hi in ((0, 5), (5, 11), (11, 16))]
+               + [(dict(protocol="benor", n=1100, f=219, adversary="byzantine"), 275, 550)])
+
+
+@pytest.mark.parametrize("fields,lo,hi", RANGE_CASES,
+                         ids=[f"{c['protocol']}-n{c['n']}-{c['adversary']}-{lo}-{hi}"
+                              for c, lo, hi in RANGE_CASES])
+def test_keys_counts_on_receiver_ranges_match_reference_pallas(fields, lo, hi,
+                                                               pallas_interpret):
+    cfg = SimConfig(instances=60_000, coin="local", seed=41, delivery="keys",
+                    **fields).validate()
+    assert_receiver_ranges_match_pallas("keys", cfg, lo, hi, pallas_interpret)

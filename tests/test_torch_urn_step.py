@@ -189,3 +189,24 @@ def test_unsupported_surface_raises_step_unsupported_by_name(fields, named):
     assert named in str(e.value)
     # The plain path runs the model layer's whole surface, these configs too.
     assert len(get_backend("torch", device="cpu").run(cfg, inst_ids=[0]).rounds) == 1
+
+
+# As test_torch_keys_step.py::RANGE_CASES; the v2 shard at f = 20 (the
+# reference's interpret-mode kernel unrolls f draws).
+URN_RANGE_CASES = ([(dict(protocol=p, n=16, f=f, adversary=a), lo, hi)
+                    for p, f, a in (("benor", 3, "byzantine"), ("bracha", 5, "adaptive"),
+                                    ("benor", 7, "crash"), ("bracha", 5, "adaptive_min"))
+                    for lo, hi in ((0, 5), (5, 11), (11, 16))]
+                   + [(dict(protocol="benor", n=1100, f=20, adversary="byzantine"), 275, 550)])
+
+
+@pytest.mark.parametrize("fields,lo,hi", URN_RANGE_CASES,
+                         ids=[f"{c['protocol']}-n{c['n']}-{c['adversary']}-{lo}-{hi}"
+                              for c, lo, hi in URN_RANGE_CASES])
+def test_urn_counts_on_receiver_ranges_match_reference_pallas(fields, lo, hi,
+                                                              pallas_interpret):
+    from test_torch_keys_step import assert_receiver_ranges_match_pallas
+
+    cfg = SimConfig(instances=60_000, coin="local", seed=42, delivery="urn",
+                    **fields).validate()
+    assert_receiver_ranges_match_pallas("urn", cfg, lo, hi, pallas_interpret)
