@@ -12,6 +12,12 @@ a per-step round driver whose deliveries are hand-written CUDA kernels
 (``csrc/keys_step.cu``, ``csrc/urn_step.cu``). All go through the ``torch``
 backend. Entry points run on the card unless the caller asks for
 the CPU (``device="cpu"``), where the plain torch path runs.
+
+Around them: config 5's resumable sweep (``utils/sweep.py``), the bit-match
+check against two arbiters, the object oracle (``core/``, backend ``cpu``)
+and the C++ core (backend ``native``), the protocol counters
+(``obs/counters.py``) and the safety invariants (``models/invariants.py``);
+the command line is ``cli.py``.
 """
 
 from byzantinerandomizedconsensus_tpu_torch.backends import get_backend

@@ -1,7 +1,9 @@
 """Backend registry of the port: ``torch`` (the CUDA kernels on the card, or
 the plain torch round driver), ``torch_sharded[:n_model[,kernel]]`` (the
-``(data, model)`` mesh) and ``virtual[:DxM]`` (the mesh's driver on CPU
-tensors). A name's ``:param`` suffix goes to its factory."""
+``(data, model)`` mesh), ``virtual[:DxM]`` (the mesh's driver on CPU
+tensors), and the two arbiters of the bit-match, ``cpu`` (the object
+oracle) and ``native[:threads]`` (the C++ core). A name's ``:param`` suffix
+goes to its factory."""
 
 from byzantinerandomizedconsensus_tpu_torch.backends.base import (
     SimResult,
@@ -44,9 +46,26 @@ def _virtual(param: str = "2x2", **options):
     return VirtualMeshBackend(n_data=int(d or "2"), n_model=int(m or "1"), **options)
 
 
+def _cpu():
+    """``cpu`` — the object oracle (``core/``), an arbiter."""
+    from byzantinerandomizedconsensus_tpu_torch.backends.cpu import CpuBackend
+
+    return CpuBackend()
+
+
+def _native(n_threads: str = "0"):
+    """``native[:<threads>]`` — the C++ core (``native/simcore.cpp``), an
+    arbiter."""
+    from byzantinerandomizedconsensus_tpu_torch.backends.native_backend import NativeBackend
+
+    return NativeBackend(n_threads=int(n_threads or "0"))
+
+
 register_backend("torch", _torch)
 register_backend("torch_sharded", _torch_sharded)
 register_backend("virtual", _virtual)
+register_backend("cpu", _cpu)
+register_backend("native", _native)
 
 __all__ = [
     "SimResult",

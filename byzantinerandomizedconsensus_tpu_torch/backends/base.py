@@ -41,6 +41,23 @@ class SimulatorBackend(abc.ABC):
     def run(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None) -> SimResult:
         """Simulate the given instances (default: all of them) to termination."""
 
+    def prepare(self, cfg: SimConfig) -> None:
+        """Build what a run of ``cfg`` needs before a timed run (default:
+        nothing)."""
+
+    def run_with_counters(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None):
+        """``run`` plus the protocol-counter side output (``obs/counters.py``):
+        returns ``(SimResult, counters_doc)`` with the result arrays
+        bit-identical to ``run``'s.
+
+        Default: unsupported. Raises
+        :class:`~obs.counters.CountersUnsupported` by name, so a caller
+        that writes a run record degrades to a ``supported: false`` block."""
+        from byzantinerandomizedconsensus_tpu_torch.obs.counters import CountersUnsupported
+
+        raise CountersUnsupported(
+            f"backend {self.name!r} has no protocol-counter channel")
+
     @staticmethod
     def _resolve_inst_ids(cfg: SimConfig, inst_ids) -> np.ndarray:
         if inst_ids is None:

@@ -34,7 +34,9 @@ from byzantinerandomizedconsensus_tpu_torch.backends.base import (
     SimResult, SimulatorBackend, run_chunked)
 from byzantinerandomizedconsensus_tpu_torch.config import FAULT_KINDS, SimConfig
 from byzantinerandomizedconsensus_tpu_torch.models import adversaries, driver
+from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import DELIVERIES
+from byzantinerandomizedconsensus_tpu_torch.obs import counters as counters_mod
 from byzantinerandomizedconsensus_tpu_torch.ops import (
     _build, _step, fused_round, keys_step, prf, urn_step)
 
@@ -167,3 +169,57 @@ class TorchBackend(SimulatorBackend):
             impl = functools.partial(driver.run_chunk, cfg)
         rounds, decision = run_chunked(impl, ids, chunk, self.device)
         return SimResult(config=cfg, inst_ids=ids, rounds=rounds, decision=decision)
+
+    def run_with_counters(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None):
+        """``run`` plus the protocol-counter totals (``obs/counters.py``):
+        returns ``(SimResult, counters_doc)``. The counters are a side output
+        of the plain driver's round bodies, folded under the ``done_at < 0``
+        mask, so the results are bit-identical to ``run``'s. The CUDA
+        kernels compute delivery and tally in-kernel with no side channel:
+        under ``fused`` or ``step`` this raises
+        :class:`~obs.counters.CountersUnsupported`, naming the kernel."""
+        res, _, _, rows = self._run_full(cfg, inst_ids, counters=True)
+        totals = counters_mod.finalize(res.config, rows)
+        return res, counters_mod.counters_doc(res.config, totals, backend=self.name)
+
+    def run_with_state(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None):
+        """``run`` plus the final per-replica state and the faulty mask:
+        ``(SimResult, state, faulty)``, ``state`` the ``models/state.py``
+        dict of (I, n) numpy arrays and ``faulty`` the (I, n) bool mask, the
+        surface the safety invariants read (``models/invariants.py``). On
+        ``kernel="plain"`` only, like :meth:`run_with_counters`."""
+        return self._run_full(cfg, inst_ids)[:3]
+
+    def _run_full(self, cfg: SimConfig, inst_ids, counters: bool = False):
+        cfg = cfg.validate()
+        kernel = self.kernel_for(cfg)
+        if kernel != "plain":
+            what = "protocol-counter" if counters else "per-replica state"
+            raise counters_mod.CountersUnsupported(
+                f"kernel={kernel!r} has no {what} side channel: the CUDA kernel "
+                f"computes delivery and tally in-kernel; run with kernel='plain'")
+        self.check_supported(cfg)
+        ids = self._resolve_inst_ids(cfg, inst_ids)
+        chunk = min(self.chunk_size(cfg), max(1, len(ids)))
+        parts = []
+        for lo in range(0, len(ids), chunk):
+            cids = torch.as_tensor(ids[lo:lo + chunk], dtype=torch.int32).to(self.device)
+            out = driver.run_chunk_full(cfg, cids, counters=counters)
+            parts.append({k: v for k, v in out.items() if v is not None})
+        if not parts:
+            parts = [{"rounds": torch.empty(0, dtype=torch.int32),
+                      "decision": torch.empty(0, dtype=torch.uint8),
+                      "state": state_mod.init_state(cfg, cfg.seed,
+                                                    torch.empty(0, dtype=torch.int32)),
+                      "faulty": torch.zeros((0, cfg.n), dtype=torch.bool),
+                      "counters": counters_mod.zeros(cfg, 0)}]
+
+        def cat(get):
+            return torch.cat([get(p) for p in parts]).cpu().numpy()
+
+        res = SimResult(config=cfg, inst_ids=ids,
+                        rounds=cat(lambda p: p["rounds"]).astype(np.int32, copy=False),
+                        decision=cat(lambda p: p["decision"]).astype(np.uint8, copy=False))
+        state = {k: cat(lambda p: p["state"][k]) for k in parts[0]["state"]}
+        rows = cat(lambda p: p["counters"]) if counters else None
+        return res, state, cat(lambda p: p["faulty"]), rows

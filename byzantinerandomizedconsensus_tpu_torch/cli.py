@@ -1,16 +1,35 @@
-"""Command line of the port: run a preset or a config-5 sweep point through
-the torch backend and print the same JSON summary as the reference CLI's
-``run``; or run the five benchmark configurations as shipped and print them
-in one JSON, as the reference's ``product`` does.
+"""Command line of the port, with the reference CLI's JSON:
+
+- ``run``: a preset, a config-5 sweep point or an ad-hoc config through the
+  torch backend, printing the reference's run summary; with ``--counters``
+  the protocol counters beside it, with ``--total-instances`` a run across
+  derived seeds;
+- ``sweep``: config 5's resumable sweep, one checkpoint shard per (n,
+  instance range), the reference's shard files;
+- ``bitmatch``: a backend against an arbiter (``cpu``, the object oracle, or
+  ``native``, the C++ core), per instance on sampled ids;
+- ``product``: the five benchmark configurations as shipped, in one JSON;
+- ``trace``: where each configuration's time goes on the card.
+
+Everything runs on the card unless ``--device cpu`` is given.
 
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config2 --hist
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config4 \
         --instances 256 --device cpu --hist
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config3 \
+        --kernel plain --counters
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config2 \
+        --total-instances 300000
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --sweep-point 512 \
         --delivery keys
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --committee-point 131072 --hist
+    python -m byzantinerandomizedconsensus_tpu_torch.cli sweep --out sweep_out
+    python -m byzantinerandomizedconsensus_tpu_torch.cli bitmatch --preset config4 \
+        --samples 300 --arbiter native
+    python -m byzantinerandomizedconsensus_tpu_torch.cli bitmatch --protocol bracha \
+        -n 16 -f 5 --instances 64 --samples 24 --arbiter cpu
     python -m byzantinerandomizedconsensus_tpu_torch.cli product --out product.json
     python -m byzantinerandomizedconsensus_tpu_torch.cli trace \
         --configs config3 config5@1024 config5@512/keys
@@ -21,109 +40,255 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import math
 import pathlib
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 from byzantinerandomizedconsensus_tpu_torch.backends import get_backend
-from byzantinerandomizedconsensus_tpu_torch.backends.base import SimResult
 from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import KERNELS
 from byzantinerandomizedconsensus_tpu_torch.config import (
-    DELIVERY_KINDS, FAULT_KINDS, PRESETS, SWEEP_POINT_N, committee_point, preset,
-    sweep_point)
+    DELIVERY_KINDS, FAULT_KINDS, PRESETS, PRODUCT_DELIVERY, SWEEP_INSTANCES, SWEEP_NS,
+    SWEEP_NS_EXTENDED, SWEEP_POINT_N, SimConfig, committee_point, preset, sweep_point)
+from byzantinerandomizedconsensus_tpu_torch.core.simulator import Simulator
+from byzantinerandomizedconsensus_tpu_torch.obs import counters
+from byzantinerandomizedconsensus_tpu_torch.tools.acceptance import compare_results, sample_ids
+from byzantinerandomizedconsensus_tpu_torch.utils import multiseed, sweep
+from byzantinerandomizedconsensus_tpu_torch.utils.metrics import (  # noqa: F401  (the run summary's helpers, read by chip_smoke.py and the tests)
+    decision_histogram, round_histogram, summary)
 
 #: The configurations of ``product``: the four presets and config 5's sweep
 #: point, each as shipped.
 PRODUCT_CONFIGS = (*PRESETS, "config5")
 
 
-def round_histogram(res: SimResult) -> np.ndarray:
-    """(round_cap + 1,) int64 — index r counts instances that terminated in r
-    rounds; capped instances sit in the last bin."""
-    return np.bincount(res.rounds, minlength=res.config.round_cap + 1).astype(np.int64)
+def _add_override_args(p: argparse.ArgumentParser) -> None:
+    """The reference CLI's config flags other than ``--preset``."""
+    p.add_argument("--protocol", choices=["benor", "bracha"], default=None)
+    p.add_argument("-n", type=int, default=None)
+    p.add_argument("-f", type=int, default=None)
+    p.add_argument("--instances", type=int, default=None)
+    p.add_argument("--adversary",
+                   choices=["none", "crash", "byzantine", "adaptive", "adaptive_min"],
+                   default=None)
+    p.add_argument("--coin", choices=["local", "shared"], default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--round-cap", type=int, default=None)
+    p.add_argument("--init", choices=["random", "all0", "all1", "split"], default=None)
+    p.add_argument("--delivery", choices=DELIVERY_KINDS, default=None,
+                   help="delivery law: urn, urn2, urn3 and committee run on the "
+                        "fused kernel, keys on the per-step kernel (urn too with "
+                        "--kernel step)")
+    p.add_argument("--faults", choices=FAULT_KINDS, default=None,
+                   help="fault schedule (spec §9), orthogonal to --adversary: "
+                        "recover (crash-recovery windows) | partition (an "
+                        "epoch isolating part of the fault-prone set) | "
+                        "omission (per-round bursts); on the card through "
+                        "the fused kernel under urn, urn2, urn3 and committee, "
+                        "else with --kernel plain")
 
 
-def decision_histogram(res: SimResult) -> np.ndarray:
-    """(3,) int64 — counts of decisions 0, 1 and 2 (undecided at the cap)."""
-    return np.bincount(res.decision, minlength=3).astype(np.int64)
+def _add_device_args(p: argparse.ArgumentParser, backend_help: str) -> None:
+    """``--backend`` and the port's ``--device`` and ``--kernel``."""
+    p.add_argument("--backend", default="torch", help=backend_help)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises with no card) or cpu")
+    p.add_argument("--kernel", choices=KERNELS, default=None,
+                   help="fused (the round-loop kernel; default on cuda for "
+                        "urn, urn2, urn3 and committee), step (the per-step "
+                        "kernels, keys and urn; default on cuda for keys) or "
+                        "plain (torch ops)")
 
 
-def _percentiles(values, qs) -> list:
-    """Exact nearest-rank percentiles (an element of ``values`` each)."""
-    vals = np.sort(np.asarray(values).ravel())
-    if vals.size == 0:
-        return [None] * len(qs)
-    return [int(vals[max(1, math.ceil(q * vals.size / 100.0)) - 1]) for q in qs]
+BACKEND_HELP = ("torch (default) | torch_sharded[:n_model[,kernel]] (the (data, model) "
+                "mesh: every card on the data axis, n_model replica shards per row) | "
+                "virtual[:DxM] (the mesh's driver on CPU tensors, D data x M model "
+                "shards) | cpu (the object oracle) | native[:threads] (the C++ core)")
 
 
-def summary(res: SimResult) -> dict:
-    """The reference CLI's ``run`` summary keys, from one result."""
-    cfg = res.config
-    decided = res.decision != 2
-    dh = decision_histogram(res)
-    n_inst = int(len(res.inst_ids))
-    return {
-        "protocol": cfg.protocol, "n": cfg.n, "f": cfg.f,
-        "adversary": cfg.adversary, "coin": cfg.coin,
-        "delivery": cfg.delivery, "faults": cfg.faults, "seed": cfg.seed,
-        "instances": n_inst,
-        "decided": int(decided.sum()),
-        "decided_fraction": round(int(decided.sum()) / n_inst, 6) if n_inst else None,
-        "undecided_at_cap": int(dh[2]),
-        "round_cap": cfg.round_cap,
-        "mean_rounds_decided": float(res.rounds[decided].mean()) if decided.any() else None,
-        "max_rounds": int(res.rounds.max()) if len(res.rounds) else 0,
-        **dict(zip(("rounds_p50", "rounds_p90", "rounds_p99"),
-                   _percentiles(res.rounds, (50, 90, 99)))),
-        "decision_histogram": dh.tolist(),
-        "wall_s": res.wall_s,
-        "instances_per_sec": res.instances_per_sec if res.wall_s else None,
-    }
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value <= 0:
+        raise argparse.ArgumentTypeError(f"must be positive, got {value}")
+    return value
+
+
+def _announce_default_delivery() -> str:
+    """One stderr line when ``--delivery`` is defaulted, naming the product
+    law it takes."""
+    print(f"[cli] --delivery not given: using the product scheduling model "
+          f"'{PRODUCT_DELIVERY}' (pass --delivery {'|'.join(DELIVERY_KINDS)} "
+          "to pin)", file=sys.stderr)
+    return PRODUCT_DELIVERY
+
+
+def _config_from(args, base=None) -> SimConfig:
+    """The config the flags name: every flag given applies, on top of
+    ``base`` or ``--preset`` where there is one, else on the reference CLI's
+    ad-hoc defaults under the product delivery law."""
+    overrides = {k: v for k, v in [
+        ("protocol", args.protocol), ("n", args.n), ("f", args.f),
+        ("instances", args.instances), ("adversary", args.adversary),
+        ("coin", args.coin), ("seed", args.seed), ("round_cap", args.round_cap),
+        ("init", args.init), ("delivery", args.delivery), ("faults", args.faults),
+    ] if v is not None}
+    if base is not None:
+        return dataclasses.replace(base, **overrides).validate()
+    if args.preset:
+        return preset(args.preset, **overrides)
+    delivery = args.delivery if args.delivery is not None \
+        else _announce_default_delivery()
+    defaults = dict(protocol="benor", n=4, f=1, instances=1, adversary="none",
+                    coin="local", seed=0, round_cap=256, init="random",
+                    delivery=delivery)
+    defaults.update(overrides)
+    return SimConfig(**defaults).validate()
 
 
 def cmd_run(args) -> int:
     if args.sweep_point is not None:
-        cfg = sweep_point(args.sweep_point)
+        base = sweep_point(args.sweep_point)
     elif args.committee_point is not None:
-        cfg = committee_point(args.committee_point)
+        base = committee_point(args.committee_point)
     else:
-        cfg = preset(args.preset or "config4")
-    overrides = {k: v for k, v in (("instances", args.instances),
-                                   ("delivery", args.delivery),
-                                   ("adversary", args.adversary),
-                                   ("faults", args.faults)) if v is not None}
-    cfg = dataclasses.replace(cfg, **overrides).validate()
+        base = preset(args.preset or "config4")
+    cfg = _config_from(args, base)
     backend = make_backend(args.backend, args.device, args.kernel)
     backend.prepare(cfg)
-    res = backend.timed_run(cfg)
+    counters_doc = shards = None
+    if args.total_instances:
+        if args.counters:
+            print("--counters is not supported with --total-instances "
+                  "(multi-seed shards have no counter channel yet)", file=sys.stderr)
+            return 2
+        res, shards = multiseed.run_large(
+            cfg, args.total_instances, backend=backend,
+            progress=lambda msg: print(msg, file=sys.stderr))
+    elif args.counters:
+        # The counter side output: the same run with bit-identical results,
+        # plus the totals. A kernel without a counter channel makes the run
+        # as asked, and the JSON says why it carries no totals.
+        try:
+            t0 = time.perf_counter()
+            res, counters_doc = backend.run_with_counters(cfg)
+            res.wall_s = time.perf_counter() - t0
+        except counters.CountersUnsupported as e:
+            print(f"[cli] {e}", file=sys.stderr)
+            counters_doc = counters.unsupported_doc(e)
+            res = backend.timed_run(cfg)
+    else:
+        res = backend.timed_run(cfg)
     out = summary(res)
-    out.update(_device_fields(backend, args.backend), kernel=backend.kernel_for(cfg))
+    if counters_doc is not None:
+        out["counters"] = counters_doc
+    if shards is not None:
+        out["seeds"] = [s.seed for s in shards]
+    out.update(_device_fields(backend, args.backend, cfg))
     if args.hist:
         out["round_histogram"] = round_histogram(res).tolist()
     print(json.dumps(out))
     return 0
 
 
+def cmd_bitmatch(args) -> int:
+    """A sampled check of a backend against an arbiter, per instance: the
+    object oracle (``cpu``, independent of the model layer) or the C++ core
+    (``native``, fast enough for hundreds of samples at benchmark scale).
+    Exit 0 when every sample matches, 1 on any mismatch, 2 when the backend
+    is the arbiter itself."""
+    if args.backend.partition(":")[0] == args.arbiter:
+        print("bitmatch compares the arbiter against a *different* backend; "
+              "pick a --backend not implemented by the arbiter "
+              "(torch|torch_sharded|virtual, or native vs --arbiter cpu)",
+              file=sys.stderr)
+        return 2
+    cfg = _config_from(args)
+    if cfg.instances < args.samples:
+        # A small preset (config1 ships one instance) widens its id range
+        # rather than shrink the check: instance i depends only on
+        # (cfg, seed, i) (spec §1).
+        cfg = dataclasses.replace(cfg, instances=args.samples).validate()
+    ids = sample_ids(cfg, args.samples, seed=cfg.seed)
+    backend = make_backend(args.backend, args.device, args.kernel)
+    ref = Simulator(cfg, args.arbiter).run(ids)
+    got = backend.timed_run(cfg, ids)
+    cmp = compare_results(ref, got)
+    out = {
+        "bitmatch": cmp["match"],
+        "arbiter": args.arbiter,
+        "backend": args.backend,
+        "n_samples": int(len(ids)),
+        # The effective id range, which may exceed a small preset's.
+        "instances": int(cfg.instances),
+        "mismatches": cmp["mismatches"],
+        "arbiter_wall_s": ref.wall_s,
+        "backend_wall_s": got.wall_s,
+    }
+    out.update(_device_fields(backend, args.backend, cfg))
+    if len(ids) <= 32:
+        out["samples"] = ids.tolist()
+        out["arbiter_rounds"] = ref.rounds.tolist()
+        out["backend_rounds"] = got.rounds.tolist()
+    print(json.dumps(out))
+    return 0 if cmp["match"] else 1
+
+
+def cmd_sweep(args) -> int:
+    """Config 5's sweep, resumable from the shards in ``--out``: one JSON
+    record with the per-n summaries under ``points``."""
+    delivery = args.delivery if args.delivery is not None \
+        else _announce_default_delivery()
+    default_ns = SWEEP_NS_EXTENDED if args.extended else SWEEP_NS
+    points = sweep.run_sweep(
+        pathlib.Path(args.out), backend=args.backend,
+        ns=tuple(args.ns) if args.ns else default_ns,
+        instances=args.instances, seed=args.seed,
+        shard_instances=args.shard_instances, coin=args.coin,
+        delivery=delivery, round_cap=args.round_cap,
+        progress=lambda msg: print(msg, file=sys.stderr),
+        **backend_options(args.backend, args.device, args.kernel),
+    )
+    print(json.dumps(sweep.sweep_record(points, args.backend, delivery)))
+    return 0
+
+
+def backend_options(name: str, device: str, kernel) -> dict:
+    """The options ``get_backend(name, ...)`` takes: ``device`` and
+    ``kernel`` for the torch backends; none for ``virtual`` (the plain path
+    on the CPU) and the arbiters ``cpu`` and ``native``."""
+    base = name.partition(":")[0]
+    if base == "virtual" and kernel not in (None, "plain"):
+        raise SystemExit(f"--backend {name} runs the plain path; got --kernel {kernel}")
+    if base in ("cpu", "native") and kernel is not None:
+        raise SystemExit(f"--backend {name} runs no torch kernel; got --kernel {kernel}")
+    return {} if base in ("virtual", "cpu", "native") else {"device": device,
+                                                            "kernel": kernel}
+
+
 def make_backend(name: str, device: str, kernel):
-    """The backend ``name`` (``torch``, ``torch_sharded[:M[,KERNEL]]`` or
-    ``virtual[:DxM]``) on ``device`` with ``kernel``; ``virtual`` runs the
-    plain path on the CPU and takes neither."""
-    if name.partition(":")[0] == "virtual":
-        if kernel not in (None, "plain"):
-            raise SystemExit(f"--backend {name} runs the plain path; got --kernel {kernel}")
-        return get_backend(name)
-    return get_backend(name, device=device, kernel=kernel)
+    """The backend ``name`` (``torch``, ``torch_sharded[:M[,KERNEL]]``,
+    ``virtual[:DxM]``, ``cpu`` or ``native[:threads]``) with the options it
+    takes (:func:`backend_options`)."""
+    return get_backend(name, **backend_options(name, device, kernel))
 
 
-def _device_fields(backend, name: str = "torch") -> dict:
-    out = {"backend": name, "device": str(backend.device)}
-    if backend.device.type == "cuda":
+def _device_fields(backend, name: str = "torch", cfg=None) -> dict:
+    """The backend's name, its device (and the card's name) and, with
+    ``cfg``, the kernel the run took; the arbiters run on the host and have
+    neither device nor kernel."""
+    out = {"backend": name}
+    device = getattr(backend, "device", None)
+    if device is None:
+        return out
+    out["device"] = str(device)
+    if device.type == "cuda":
         import torch
 
-        out["device_name"] = torch.cuda.get_device_name(backend.device)
+        out["device_name"] = torch.cuda.get_device_name(device)
+    if cfg is not None:
+        out["kernel"] = backend.kernel_for(cfg)
     return out
 
 
@@ -214,8 +379,8 @@ def cmd_product(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="byzantinerandomizedconsensus_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="run a preset or a config-5 sweep point "
-                         "through the torch backend")
+    run = sub.add_parser("run", help="run a preset, a config-5 sweep point or an "
+                         "ad-hoc config through the torch backend")
     which = run.add_mutually_exclusive_group()
     which.add_argument("--preset", choices=sorted(PRESETS), default=None,
                        help="a benchmark preset (default config4)")
@@ -226,36 +391,46 @@ def build_parser() -> argparse.ArgumentParser:
                        help="config 5's shape under the committee family at n=N "
                             "(spec §10: bracha, f=N//5, adaptive, shared coin, "
                             "2000 instances; N up to 2^20)")
-    run.add_argument("--instances", type=int, default=None,
-                     help="run only the first N instances of the config")
-    run.add_argument("--delivery", choices=DELIVERY_KINDS, default=None,
-                     help="override the config's delivery law: urn, urn2, urn3 "
-                          "and committee run on the fused kernel, keys on the "
-                          "per-step kernel (urn too with --kernel step)")
-    run.add_argument("--adversary", default=None,
-                     help="override the config's adversary")
-    run.add_argument("--faults", choices=FAULT_KINDS, default=None,
-                     help="fault schedule (spec §9), orthogonal to --adversary: "
-                          "recover (crash-recovery windows) | partition (an "
-                          "epoch isolating part of the fault-prone set) | "
-                          "omission (per-round bursts); on the card through "
-                          "the fused kernel under urn, urn2, urn3 and committee, "
-                          "else with --kernel plain")
-    run.add_argument("--device", default="cuda",
-                     help="cuda (default; raises with no card) or cpu")
-    run.add_argument("--kernel", choices=KERNELS, default=None,
-                     help="fused (the round-loop kernel; default on cuda for "
-                          "urn, urn2, urn3 and committee), step (the per-step "
-                          "kernels, keys and urn; default on cuda for keys) or "
-                          "plain (torch ops)")
-    run.add_argument("--backend", default="torch",
-                     help="torch (default) | torch_sharded[:n_model[,kernel]] (the "
-                          "(data, model) mesh: every card on the data axis, n_model "
-                          "replica shards per row) | virtual[:DxM] (the mesh's driver "
-                          "on CPU tensors, D data x M model shards)")
+    _add_override_args(run)
+    _add_device_args(run, BACKEND_HELP)
     run.add_argument("--hist", action="store_true",
                      help="add the rounds histogram to the summary")
+    run.add_argument("--counters", action="store_true",
+                     help="add the protocol counters (obs/counters.py): delivered "
+                          "and dropped per phase, coin flips, the sampler's cost; "
+                          "results stay bit-identical. Only --kernel plain has a "
+                          "counter channel; another kernel runs as asked and the "
+                          "JSON says why it has no totals")
+    run.add_argument("--total-instances", type=_positive_int, default=None,
+                     help="run this many instances across derived seeds "
+                          "(utils/multiseed.py), past the per-seed ceiling of spec §2")
     run.set_defaults(fn=cmd_run)
+    bm = sub.add_parser("bitmatch", help="a backend against an arbiter, per instance "
+                        "on sampled ids")
+    bm.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                    help="a benchmark preset (default: an ad-hoc config from the "
+                         "flags, benor n=4 f=1 where none is given)")
+    _add_override_args(bm)
+    _add_device_args(bm, BACKEND_HELP)
+    bm.add_argument("--samples", type=_positive_int, default=4)
+    bm.add_argument("--arbiter", choices=["cpu", "native"], default="cpu",
+                    help="cpu (the object oracle) | native (the C++ core, fast "
+                         "enough for hundreds of samples at benchmark scale)")
+    bm.set_defaults(fn=cmd_bitmatch)
+    sw = sub.add_parser("sweep", help="config 5's sweep (resumable)")
+    sw.add_argument("--out", default="sweep_out",
+                    help="the checkpoint directory: shards there are skipped")
+    sw.add_argument("--ns", nargs="*", type=int, default=None)
+    sw.add_argument("--extended", action="store_true",
+                    help="add the n=2048 point past the v1 packing edge (spec §2 v2)")
+    sw.add_argument("--instances", type=int, default=SWEEP_INSTANCES)
+    sw.add_argument("--shard-instances", type=int, default=500)
+    sw.add_argument("--seed", type=int, default=0)
+    sw.add_argument("--round-cap", type=int, default=None)
+    sw.add_argument("--coin", choices=["local", "shared"], default="shared")
+    sw.add_argument("--delivery", choices=DELIVERY_KINDS, default=None)
+    _add_device_args(sw, BACKEND_HELP)
+    sw.set_defaults(fn=cmd_sweep)
     prod = sub.add_parser("product", help="the five benchmark configurations as "
                           "shipped, timed, with histograms, in one JSON")
     prod.add_argument("--configs", nargs="+", choices=PRODUCT_CONFIGS,

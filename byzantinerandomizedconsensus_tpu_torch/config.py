@@ -48,6 +48,10 @@ class SimConfig:
     faults: FaultKind = "none"
 
     @property
+    def steps_per_round(self) -> int:
+        return 2 if self.protocol == "benor" else 3
+
+    @property
     def n_eff(self) -> int:
         """The value of n in protocol arithmetic (equal to ``n`` for a plain
         config; the reference's batched lanes substitute a padded view)."""
@@ -141,6 +145,32 @@ class SimConfig:
                     f"committee resilience: benor requires 2·f_C < C, got "
                     f"C={c}, f_C={fc} (n={self.n}, f={self.f}; spec §10.3)")
         return self
+
+
+def validate_batch(cfgs) -> list["SimConfig"]:
+    """Validate a batched lane request: every config on its own, and the
+    batch servable by one program, which runs one delivery law and one spec
+    §2 packing law. A request that mixes either is rejected with the
+    reference's message. Returns the validated configs."""
+    cfgs = [c.validate() for c in cfgs]
+    if not cfgs:
+        raise ValueError("empty batch: at least one config is required")
+    d0 = cfgs[0].delivery
+    for c in cfgs[1:]:
+        if c.delivery != d0:
+            raise ValueError(
+                f"batch mixes delivery laws {d0!r} and {c.delivery!r}: one "
+                "lane bucket runs one delivery law (split the batch per "
+                "delivery, or use run_many to auto-group)")
+    p0 = cfgs[0].pack_version
+    for c in cfgs[1:]:
+        if c.pack_version != p0:
+            raise ValueError(
+                f"batch mixes spec §2 packing versions v{p0} and "
+                f"v{c.pack_version}: one lane bucket draws under one packing "
+                "law (split the batch at the n = 1024 packing edge, or use "
+                "run_many to auto-group)")
+    return cfgs
 
 
 # The product scheduling model: what every preset pins (spec §4b-v2).

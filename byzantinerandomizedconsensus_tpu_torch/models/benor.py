@@ -16,13 +16,14 @@ from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
-               counts_fn=None, stats=None, recv_ids=None, gather=None) -> dict:
+               counts_fn=None, stats=None, recv_ids=None, gather=None, obs=None) -> dict:
     """Execute one Ben-Or round; returns the new state dict.
 
     ``counts_fn`` and ``stats`` are the delivery hook and the sampler's cost
     counters (the propose step's over undecided replicas only),
-    ``coin_words`` and ``fault_words``, and ``recv_ids``/``gather`` the
-    replica-sharded path's seams, as in :func:`models.bracha.round_body`.
+    ``coin_words`` and ``fault_words``, ``recv_ids``/``gather`` the
+    replica-sharded path's seams and ``obs`` the counter side channel, as
+    in :func:`models.bracha.round_body`.
     """
     # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
     n, f = committee.quorum_params(cfg)
@@ -32,7 +33,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     fsil, fside = faults.round_masks(cfg, seed, inst_ids, rnd, setup.get("faults"),
                                      stats=stats)
     counts = make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=counts_fn,
-                         stats=stats, fside=fside, recv_ids=recv_ids)
+                         stats=stats, fside=fside, recv_ids=recv_ids, obs=obs,
+                         fsil=fsil)
     if gather is None:  # the unsharded path: R = n
         def gather(v):
             return v

@@ -15,7 +15,7 @@ from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
-               counts_fn=None, stats=None, recv_ids=None, gather=None) -> dict:
+               counts_fn=None, stats=None, recv_ids=None, gather=None, obs=None) -> dict:
     """Execute one Bracha round; returns the new state dict.
 
     ``counts_fn`` swaps a per-step kernel in for the delivery law's plain
@@ -32,6 +32,9 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     (B, R) values to the full (B, n) width before the adversary, validation
     and delivery see them. Validation and the live counts run over the
     full sender width. Without them R = n and nothing is gathered.
+
+    ``obs``, when a dict, receives each step's counter side channel
+    (``models/delivery.py::make_counts``, ``obs/counters.py``).
     """
     # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
     n, f = committee.quorum_params(cfg)
@@ -43,7 +46,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     fsil, fside = faults.round_masks(cfg, seed, inst_ids, rnd, setup.get("faults"),
                                      stats=stats)
     counts = make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=counts_fn,
-                         stats=stats, fside=fside, recv_ids=recv_ids)
+                         stats=stats, fside=fside, recv_ids=recv_ids, obs=obs,
+                         fsil=fsil)
     if gather is None:  # the unsharded path: R = n
         def gather(v):
             return v

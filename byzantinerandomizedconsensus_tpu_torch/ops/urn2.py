@@ -30,7 +30,8 @@ def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=Non
     ``d``. ``stats``, when a dict, gains this segment's work per instance,
     (B,) int64 each: ``chain_trips`` (draws, the sum of K) and
     ``chain_seeds`` (lanes with K > 0, which need the segment's PRF word),
-    over the (B, R) bool ``lanes`` whose counts are read (default all).
+    over the (B, R) bool ``lanes`` whose counts are read (default all), and
+    ``chain_trips_max``, the largest K of those lanes (merged by max).
     """
     comp = Lr - m
     is_item = (m <= comp) & (m <= Dr)
@@ -43,6 +44,9 @@ def _chain(seed, inst_ids, rnd, t, seg, m, Lr, Dr, pack=1, stats=None, lanes=Non
             if lanes is not None:
                 per_lane = per_lane * lanes
             stats[name] = stats.get(name, 0) + per_lane.sum(dim=-1, dtype=torch.int64)
+        kmax = (K if lanes is None else K * lanes).amax(dim=-1).to(torch.int64)
+        prev = stats.get("chain_trips_max")
+        stats["chain_trips_max"] = kmax if prev is None else torch.maximum(prev, kmax)
 
     inst = inst_ids.to(torch.int64)[:, None]
     if recv is None:

@@ -45,9 +45,6 @@ class VirtualMeshBackend(SimulatorBackend):
     def kernel_for(self, cfg: SimConfig) -> str:
         return "plain"
 
-    def prepare(self, cfg: SimConfig) -> None:
-        """Nothing to build: the plain path."""
-
     def run(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None) -> SimResult:
         cfg = cfg.validate()
         if cfg.n % self.n_model:

@@ -112,7 +112,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    each kernel's device time a sharded run and a launch at n_recv = 128
    against its bound for that shard, and the barrier overhead (the wall
    less the kernel time);
-12. a ``{"kernels": [...]}`` line, the card line, and last
+12. the config-5 sweep and the bit-match check through the CLI a user
+   calls: ``cli sweep`` on the card at config 5's full size (8 n × 2000
+   instances, 32 shards of 500) into an empty directory, every shard equal
+   to ``artifacts/sweep_urn2/``'s file of the same name, with its walls,
+   shards/s, instances/s and the sums over its shards of K1's time and of
+   the wrapper's (planes and K1); the
+   same sweep again (no launch, the same points), then with one shard
+   deleted (that shard's launches alone); ``cli bitmatch`` of config4
+   against the C++ core (``--arbiter native``, 300 samples) under urn2
+   (``fused_round``), keys (``keys_step``) and urn with ``--kernel step``
+   (``urn_step``), and against the object oracle (``--arbiter cpu``) on
+   config1 and a Bracha n = 16 config, each rc 0; ``cli run --counters
+   --kernel plain`` on the card equal to the CPU's, and under
+   ``fused_round`` the unsupported block;
+13. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -307,6 +321,26 @@ GRAPH_LAUNCHES = 20
 STEP_LAWS = {"keys": "keys_step", "urn": "urn_step"}
 STEP_REPLACES = {"keys_step": "byzantinerandomizedconsensus_tpu/ops/pallas_tally.py:326",
                  "urn_step": "byzantinerandomizedconsensus_tpu/ops/pallas_urn.py:291"}
+
+
+# Phase 12: config 5's sweep through ``cli sweep`` (the reference's own
+# checkpoint directory at full size, 8 n x 4 shards of 500), the shard a
+# resumed sweep recomputes after its deletion, the bit-match check through
+# ``cli bitmatch`` against the C++ core (law, extra flags, the kernel it runs,
+# label, samples) and against the object oracle, and the counted run's size.
+SWEEP_URN2_DIR = "artifacts/sweep_urn2"
+SWEEP_SHARD = 500
+SWEEP_DELETED = (640, 1000)
+BITMATCH_NATIVE = (("urn2", [], "fused_round", "", 300),
+                   ("keys", [], "keys_step", "", 300),
+                   ("urn", ["--kernel", "step"], "urn_step", " --kernel step", 300))
+BITMATCH_ORACLE = (
+    (["--preset", "config1", "--samples", "24", "--arbiter", "cpu"], "config1 vs cpu"),
+    (["--protocol", "bracha", "-n", "16", "-f", "5", "--instances", "64", "--adversary",
+      "adaptive", "--coin", "shared", "--delivery", "urn2", "--samples", "24", "--arbiter",
+      "cpu"], "bracha n=16 f=5 adaptive urn2 vs cpu"),
+)
+COUNTER_INSTANCES = 200
 
 
 def fail(msg: str) -> None:
@@ -1921,6 +1955,199 @@ def mesh_phase(dev, card):
     return cells
 
 
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` in this process, its stdout and stderr captured:
+    ``(exit code, the last stdout line as JSON or None, seconds)``."""
+    import contextlib
+    import io
+
+    from byzantinerandomizedconsensus_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    if rc not in (0, 1, 2):
+        fail(f"cli {' '.join(argv)} exited {rc}: {err.getvalue()[-2000:]}")
+    return rc, json.loads(lines[-1]) if lines else None, seconds
+
+
+def strip_walls(points: dict) -> dict:
+    return {n: {k: v for k, v in s.items() if k not in ("wall_s", "instances_per_sec")}
+            for n, s in points.items()}
+
+
+def sweep_cli_phase(card):
+    """Phase 12a: ``cli sweep`` at config 5's full size into an empty
+    directory, held shard by shard against ``artifacts/sweep_urn2/``; its
+    resume (no launch) and a deleted shard's recompute (that shard's
+    launches alone). Returns fused_round's path entry."""
+    import tempfile
+
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import SWEEP_INSTANCES, SWEEP_NS, sweep_point
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round, prf
+    from byzantinerandomizedconsensus_tpu_torch.utils import checkpoint
+
+    ref_dir = ROOT / SWEEP_URN2_DIR
+    shards = [(n, lo) for n in SWEEP_NS for lo in range(0, SWEEP_INSTANCES, SWEEP_SHARD)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "sweep"
+        argv = ["sweep", "--out", str(out)]
+        reset_launches()
+        rc, rec, wall = run_cli(argv)
+        launches = read_launches()
+        if rc != 0 or rec is None:
+            fail(f"cli sweep exited {rc}")
+        if launches["fused_round"] < len(shards) or launches["keys_step"] or launches["urn_step"]:
+            fail(f"cli sweep did not run its {len(shards)} shards through fused_round: "
+                 f"launches {launches}")
+        names = sorted(p.name for p in out.glob("*.npz"))
+        want_names = sorted(p.name for p in ref_dir.glob("*.npz"))
+        if names != want_names or len(names) != len(shards):
+            fail(f"cli sweep wrote {len(names)} shards {names[:2]}..., not the "
+                 f"{len(want_names)} of {SWEEP_URN2_DIR}")
+        for name in names:
+            got, want = np.load(out / name), np.load(ref_dir / name)
+            for key in ("inst_ids", "rounds", "decision"):
+                if got[key].dtype != want[key].dtype or not np.array_equal(got[key], want[key]):
+                    fail(f"cli sweep shard {name}: {key} differs from {SWEEP_URN2_DIR}")
+            # The reference's shards predate the faults field; it takes its default.
+            if checkpoint.load_shard(out / name).config != \
+                    checkpoint.load_shard(ref_dir / name).config:
+                fail(f"cli sweep shard {name}: its config differs from {SWEEP_URN2_DIR}")
+        k1_ms = wrapper_ms = 0.0
+        for n, lo in shards:
+            cfg = sweep_point(n)
+            ids = torch.arange(lo, lo + SWEEP_SHARD, dtype=torch.int32, device="cuda")
+            planes = fused_round.operand_planes(cfg, ids, prf.seed_key(cfg.seed))
+            k1_ms += cuda_ms(lambda: fused_round.run_chunk(cfg, ids, planes=planes), 3)
+            wrapper_ms += cuda_ms(lambda: fused_round.run_chunk(cfg, ids), 3)
+        say(f"[sweep] cli sweep, config 5 at full size ({len(SWEEP_NS)} n x "
+            f"{SWEEP_INSTANCES} instances, {len(names)} shards of {SWEEP_SHARD}): every shard "
+            f"equal to {SWEEP_URN2_DIR} (inst_ids, rounds, decision, config); "
+            f"{launches['fused_round']} fused_round launches; wall {wall} s, "
+            f"{len(names) / wall} shards/s, {len(SWEEP_NS) * SWEEP_INSTANCES / wall} "
+            f"instances/s; summed over its shards (CUDA events, mean of 3 each), K1 "
+            f"{k1_ms:.4f} ms with the planes built beforehand, the wrapper (planes and K1) "
+            f"{wrapper_ms:.4f} ms; {card}")
+
+        reset_launches()
+        rc, again, resume_wall = run_cli(argv)
+        if rc != 0 or sum(read_launches().values()):
+            fail(f"the resumed cli sweep exited {rc} with launches {read_launches()}")
+        if strip_walls(again["points"]) != strip_walls(rec["points"]):
+            fail("the resumed cli sweep's points differ from the first run's")
+
+        n, lo = SWEEP_DELETED
+        cfg = sweep_point(n)
+        victim = checkpoint.shard_name(cfg, lo, lo + SWEEP_SHARD)
+        reset_launches()
+        get_backend("torch").run(cfg, np.arange(lo, lo + SWEEP_SHARD))
+        per_shard = read_launches()["fused_round"]
+        (out / victim).unlink()
+        reset_launches()
+        rc, third, redo_wall = run_cli(argv)
+        redo = read_launches()
+        if rc != 0 or redo["fused_round"] != per_shard or redo["keys_step"] or redo["urn_step"]:
+            fail(f"recomputing the deleted shard {victim}: rc {rc}, launches {redo}, "
+                 f"not the shard's {per_shard}")
+        got, want = np.load(out / victim), np.load(ref_dir / victim)
+        if not (np.array_equal(got["rounds"], want["rounds"])
+                and np.array_equal(got["decision"], want["decision"])):
+            fail(f"the recomputed shard {victim} differs from {SWEEP_URN2_DIR}")
+        if strip_walls(third["points"]) != strip_walls(rec["points"]):
+            fail("the sweep with a recomputed shard differs from the first run's points")
+    say(f"[sweep] resumed: 0 launches, the same points, wall {resume_wall} s; with "
+        f"{victim} deleted: {redo['fused_round']} launch(es) (the shard's own), the shard "
+        f"equal to the reference again, wall {redo_wall} s; {card}")
+    return {"config": f"cli sweep (config 5, {len(SWEEP_NS)} n x {SWEEP_INSTANCES} "
+                      f"instances, {len(names)} shards)",
+            "launches": launches["fused_round"], "max_abs_err": 0, "wall_s": wall,
+            "shards_per_s": len(names) / wall,
+            "instances_per_s": len(SWEEP_NS) * SWEEP_INSTANCES / wall,
+            "k1_ms_sum": k1_ms, "wrapper_ms_sum": wrapper_ms,
+            "resume_wall_s": resume_wall, "resume_launches": 0,
+            "recompute_launches": redo["fused_round"], "recompute_wall_s": redo_wall}
+
+
+def bitmatch_phase(card):
+    """Phase 12b: ``cli bitmatch`` on the card against the C++ core through
+    K1, K2 and K3, and against the object oracle on two small configs.
+    Returns {kernel: [path entries]}."""
+    from byzantinerandomizedconsensus_tpu_torch.backends import native_backend
+
+    t0 = time.perf_counter()
+    native_backend.load()
+    say(f"[bitmatch] the native core built with g++ in {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    runs = [(["--preset", "config4", "--delivery", law, "--samples", str(samples),
+              "--arbiter", "native", *extra], kernel, f"config4 {law}{label} vs native")
+            for law, extra, kernel, label, samples in BITMATCH_NATIVE]
+    runs += [(argv, "fused_round", label) for argv, label in BITMATCH_ORACLE]
+    for argv, kernel, label in runs:
+        reset_launches()
+        rc, out, wall = run_cli(["bitmatch", *argv])
+        launches = read_launches()
+        if rc != 0 or not out["bitmatch"]:
+            fail(f"cli bitmatch {label}: rc {rc}, {out}")
+        others = {k: v for k, v in launches.items() if k != kernel and v}
+        if launches[kernel] < 1 or others:
+            fail(f"cli bitmatch {label} did not run through {kernel} alone: {launches}")
+        say(f"[bitmatch] {label}: rc 0, {out['n_samples']} samples of {out['instances']} "
+            f"instances identical; {launches[kernel]} {kernel} launch(es); arbiter "
+            f"{out['arbiter_wall_s']:.3f} s, backend {out['backend_wall_s']:.4f} s, cli wall "
+            f"{wall:.3f} s; {card}")
+        paths.setdefault(kernel, []).append({
+            "config": f"cli bitmatch {label}", "samples": out["n_samples"],
+            "launches": launches[kernel], "max_abs_err": 0, "wall_s": wall,
+            "arbiter_wall_s": out["arbiter_wall_s"],
+            "backend_wall_s": out["backend_wall_s"]})
+    return paths
+
+
+def counters_cli_phase(card):
+    """Phase 12c: ``cli run --counters`` on the card through the plain path,
+    equal to the same run on the CPU; under fused_round, the run made as
+    asked with the unsupported block."""
+    argv = ["run", "--preset", "config3", "--instances", str(COUNTER_INSTANCES), "--counters"]
+    reset_launches()
+    rc, card_out, wall = run_cli(argv + ["--kernel", "plain"])
+    if rc != 0 or sum(read_launches().values()):
+        fail(f"cli run --counters --kernel plain: rc {rc}, launches {read_launches()}")
+    rc, cpu_out, cpu_wall = run_cli(argv + ["--kernel", "plain", "--device", "cpu"])
+    if rc != 0 or card_out["counters"] != cpu_out["counters"] or \
+            card_out["decision_histogram"] != cpu_out["decision_histogram"]:
+        fail(f"config3's counters on the card differ from the CPU's: {card_out['counters']} "
+             f"vs {cpu_out['counters']}")
+    reset_launches()
+    rc, fused_out, _ = run_cli(argv)
+    if rc != 0 or fused_out["counters"]["supported"] or read_launches()["fused_round"] < 1 \
+            or fused_out["decision_histogram"] != card_out["decision_histogram"]:
+        fail(f"cli run --counters under fused_round: rc {rc}, {fused_out.get('counters')}, "
+             f"launches {read_launches()}")
+    say(f"[counters] config3 ({COUNTER_INSTANCES} instances) run --counters --kernel plain "
+        f"on the card == on the CPU: {len(card_out['counters']['totals'])} totals, "
+        f"rounds_active {card_out['counters']['totals']['rounds_active']}; walls "
+        f"{wall:.3f} s (card) and {cpu_wall:.3f} s (CPU); under fused_round the run is made "
+        f"by the kernel and the JSON carries the unsupported block "
+        f"({fused_out['counters']['reason'][:60]}...); {card}")
+
+
+def sweep_bitmatch_phase(card):
+    """Phase 12: the config-5 sweep, the bit-match check and the counters
+    through the CLI. Returns {kernel: [path entries]}."""
+    t0 = time.perf_counter()
+    paths = {"fused_round": [sweep_cli_phase(card)]}
+    for kernel, entries in bitmatch_phase(card).items():
+        paths.setdefault(kernel, []).extend(entries)
+    counters_cli_phase(card)
+    say(f"[sweep] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2091,6 +2318,11 @@ def main() -> int:
     # Phase 11: the replica-sharded path through K2 and K3 with receiver offsets.
     for kernel, cells in mesh_phase(dev, card).items():
         by_name[kernel]["mesh_paths"] = cells
+
+    # Phase 12: the config-5 sweep, the bit-match check and the counters
+    # through the CLI.
+    for kernel, entries in sweep_bitmatch_phase(card).items():
+        by_name[kernel]["paths"] += entries
 
     say(json.dumps({"kernels": kernels}))
     say(card)

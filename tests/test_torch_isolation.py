@@ -53,5 +53,10 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
     lines = proc.stdout.strip().splitlines()
     assert '"decision_histogram"' in lines[0]
     for module in ("ops.fused_round", "ops.urn3", "ops.committee", "models.committee",
-                   "parallel.mesh", "parallel.sharded", "parallel.virtual"):
+                   "parallel.mesh", "parallel.sharded", "parallel.virtual",
+                   "models.invariants", "obs.counters", "obs.record", "utils.metrics",
+                   "utils.checkpoint", "utils.sweep", "utils.multiseed", "core.prf",
+                   "core.network", "core.replica", "core.adversary", "core.faults",
+                   "core.simulator", "backends.cpu", "backends.native_backend",
+                   "tools.acceptance"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]
