@@ -170,6 +170,42 @@ class TorchBackend(SimulatorBackend):
         rounds, decision = run_chunked(impl, ids, chunk, self.device)
         return SimResult(config=cfg, inst_ids=ids, rounds=rounds, decision=decision)
 
+    def run_batch(self, cfgs, inst_ids=None, counters: bool = False):
+        """Many configs of one shape bucket as lanes of one lane program,
+        bit-identical per lane to :meth:`run` (``backends/batch.py``);
+        ``kernel="plain"`` only."""
+        from byzantinerandomizedconsensus_tpu_torch.backends import batch
+
+        return batch.run_batch(self, cfgs, inst_ids=inst_ids, counters=counters)
+
+    def run_many(self, cfgs, inst_ids=None, counters: bool = False, progress=None,
+                 compaction=None):
+        """Group arbitrary configs by shape bucket and run each group as
+        lanes; ``compaction`` (a ``CompactionPolicy``) runs each bucket
+        through the compacted lane grid (``backends/compaction.py``).
+        Returns ``(results, report)`` (with counters: ``(results, docs,
+        report)``)."""
+        from byzantinerandomizedconsensus_tpu_torch.backends import batch
+
+        return batch.run_many(self, cfgs, inst_ids=inst_ids, counters=counters,
+                              progress=progress, compaction=compaction)
+
+    def run_fused(self, cfgs, inst_ids=None, progress=None, compaction=None):
+        """Fused ``superset`` lanes for sparse grids: only (protocol,
+        delivery, tier, packing law) stay bound; adversary, fault kind,
+        coin, init and round cap are per-row lane data."""
+        from byzantinerandomizedconsensus_tpu_torch.backends import batch
+
+        return batch.run_fused(self, cfgs, inst_ids=inst_ids, progress=progress,
+                               compaction=compaction)
+
+    def compile_cache_stats(self) -> dict:
+        """The lane-program LRU's counters (the run record's
+        ``compile_cache`` block)."""
+        from byzantinerandomizedconsensus_tpu_torch.backends import batch
+
+        return batch.compile_cache(self).stats()
+
     def run_with_counters(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None):
         """``run`` plus the protocol-counter totals (``obs/counters.py``):
         returns ``(SimResult, counters_doc)``. The counters are a side output

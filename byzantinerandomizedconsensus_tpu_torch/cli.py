@@ -5,7 +5,8 @@
   the protocol counters beside it, with ``--total-instances`` a run across
   derived seeds;
 - ``sweep``: config 5's resumable sweep, one checkpoint shard per (n,
-  instance range), the reference's shard files;
+  instance range), the reference's shard files; with ``--batched`` each
+  shard row runs as lanes of the lane runner (``--kernel plain``);
 - ``bitmatch``: a backend against an arbiter (``cpu``, the object oracle, or
   ``native``, the C++ core), per instance on sampled ids;
 - ``product``: the five benchmark configurations as shipped, in one JSON;
@@ -26,6 +27,8 @@ Everything runs on the card unless ``--device cpu`` is given.
         --delivery keys
     python -m byzantinerandomizedconsensus_tpu_torch.cli run --committee-point 131072 --hist
     python -m byzantinerandomizedconsensus_tpu_torch.cli sweep --out sweep_out
+    python -m byzantinerandomizedconsensus_tpu_torch.cli sweep --out sweep_out \
+        --batched --kernel plain
     python -m byzantinerandomizedconsensus_tpu_torch.cli bitmatch --preset config4 \
         --samples 300 --arbiter native
     python -m byzantinerandomizedconsensus_tpu_torch.cli bitmatch --protocol bracha \
@@ -246,7 +249,7 @@ def cmd_sweep(args) -> int:
         ns=tuple(args.ns) if args.ns else default_ns,
         instances=args.instances, seed=args.seed,
         shard_instances=args.shard_instances, coin=args.coin,
-        delivery=delivery, round_cap=args.round_cap,
+        delivery=delivery, round_cap=args.round_cap, batched=args.batched,
         progress=lambda msg: print(msg, file=sys.stderr),
         **backend_options(args.backend, args.device, args.kernel),
     )
@@ -429,6 +432,9 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--round-cap", type=int, default=None)
     sw.add_argument("--coin", choices=["local", "shared"], default="shared")
     sw.add_argument("--delivery", choices=DELIVERY_KINDS, default=None)
+    sw.add_argument("--batched", action="store_true",
+                    help="run each shard row as lanes of the lane runner "
+                         "(backends/batch.py; needs --kernel plain)")
     _add_device_args(sw, BACKEND_HELP)
     sw.set_defaults(fn=cmd_sweep)
     prod = sub.add_parser("product", help="the five benchmark configurations as "

@@ -18,6 +18,12 @@ the keys law the per-(receiver, sender) values of
 :func:`equivocation_values`, a bounded chunk of instances at a time
 (``ops/keys_step.py::step_counts_plain``), the urn the two-faced class
 values (``ops/urn.py::byz_class_values``).
+
+The fused lanes (``backends/batch.py``) run the ``superset`` adversary:
+every adversary's outputs are computed on the shared setup and the per-row
+``cfg.adv_code`` (``backends/batch.py::ADV_CODES``) selects. The faulty
+set is gated on the code (empty on ``none`` rows), so each selected output
+is the static law's.
 """
 
 from __future__ import annotations
@@ -33,11 +39,15 @@ ADAPTIVE = ("adaptive", "adaptive_min")
 
 
 def faulty_mask(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
-    """(B, n) bool — the §3.2 faulty set; empty under the benign adversary."""
+    """(B, n) bool — the §3.2 faulty set; empty under the benign adversary
+    (on a ``superset`` row: ``adv_code`` 0)."""
     if cfg.adversary == "none":
         return torch.zeros((inst_ids.shape[0], cfg.n), dtype=torch.bool,
                            device=inst_ids.device)
-    return fault_prone_mask(cfg, seed, inst_ids)
+    mask = fault_prone_mask(cfg, seed, inst_ids)
+    if cfg.adversary == "superset":
+        mask = mask & (prf.rows(cfg.adv_code, 2) != 0)
+    return mask
 
 
 def observed_minority(honest_values: torch.Tensor, faulty: torch.Tensor) -> torch.Tensor:
@@ -55,7 +65,7 @@ def crash_rounds(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
     replica = torch.arange(cfg.n, dtype=torch.int64, device=inst_ids.device)[None, :]
     c = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None], 0, 0, replica, 0,
                     prf.CRASH_ROUND, pack=cfg.pack_version)
-    return (c % cfg.crash_window).to(torch.int32)
+    return (c % prf.rows(cfg.crash_window, 2)).to(torch.int32)
 
 
 def bracha_byzantine_code(cfg, seed, inst_ids: torch.Tensor, rnd, t) -> torch.Tensor:
@@ -71,6 +81,15 @@ def two_faced(cfg) -> bool:
     """True for Ben-Or's Byzantine pairing, whose faulty senders show each
     receiver its own value (spec §6.3)."""
     return cfg.adversary == "byzantine" and cfg.protocol != "bracha"
+
+
+def maybe_two_faced(cfg):
+    """Where Ben-Or's Byzantine pairing holds: ``True``/``False`` for a
+    static adversary, or the (B,) bool rows of a ``superset`` lane
+    (``adv_code`` 2) under Ben-Or."""
+    if cfg.adversary == "superset" and cfg.protocol != "bracha":
+        return cfg.adv_code == 2
+    return two_faced(cfg)
 
 
 def equivocation_values(cfg, seed, inst_ids: torch.Tensor, rnd, t,
@@ -99,36 +118,43 @@ def scheduling_bias(cfg, values: torch.Tensor, faulty: torch.Tensor,
     values, which are the honest ones. ⊥ is always biased. Only the
     adaptive family biases scheduling."""
     B, n = values.shape
-    if cfg.adversary not in ADAPTIVE:
+    if cfg.adversary not in ADAPTIVE + ("superset",):
         return torch.zeros((B, 1, n), dtype=torch.bool, device=values.device)
     vv = values[:, None, :]
-    if cfg.adversary == "adaptive_min":
-        return (vv == 2) | (vv != observed_minority(values, faulty)[:, None, None])
-    pref = (prf.receivers(cfg, recv_ids, values.device) >= (cfg.n_eff + 1) // 2)[None, :, None]
-    return (vv == 2) | (vv != pref)
+    if cfg.adversary != "adaptive":
+        bias_min = (vv == 2) | (vv != observed_minority(values, faulty)[:, None, None])
+        if cfg.adversary == "adaptive_min":
+            return bias_min
+    recv = prf.receivers(cfg, recv_ids, values.device)[None, :, None]
+    bias_ad = (vv == 2) | (vv != (recv >= prf.rows((cfg.n_eff + 1) // 2, 3)))
+    if cfg.adversary == "adaptive":
+        return bias_ad
+    code = prf.rows(cfg.adv_code, 3)
+    return torch.where(code == 3, bias_ad, (code == 4) & bias_min)
 
 
 class AdversaryModel:
     """Static dispatch on ``cfg.adversary``; holds only the config."""
 
     def __init__(self, cfg):
-        if cfg.adversary not in PORTED:
+        if cfg.adversary not in PORTED + ("superset",):
             raise ValueError(
                 f"unknown adversary={cfg.adversary!r}; the port runs the static "
-                f"adversaries {PORTED} (the reference's superset lanes wait for "
-                f"its lane runner)")
+                f"adversaries {PORTED} and, on the fused lanes, 'superset'")
         self.cfg = cfg
 
     def setup(self, seed, inst_ids: torch.Tensor) -> dict:
         """The static per-instance setup: the faulty set, the crash rounds
         and the §9 fault schedule's state (``None`` under faults none)."""
         fm = faulty_mask(self.cfg, seed, inst_ids)
-        if self.cfg.adversary == "crash":
+        if self.cfg.adversary in ("crash", "superset"):
             cr = crash_rounds(self.cfg, seed, inst_ids)
         else:
             cr = torch.zeros(fm.shape, dtype=torch.int32, device=fm.device)
-        # Any adversary but none selects the fault-prone set as its faulty set.
-        fprone = None if self.cfg.adversary == "none" else fm
+        # Any static adversary but none selects the fault-prone set as its
+        # faulty set; the superset's is gated per row, so the schedule draws
+        # its own.
+        fprone = None if self.cfg.adversary in ("none", "superset") else fm
         return {"faulty": fm, "crash_round": cr,
                 "faults": setup_faults(self.cfg, seed, inst_ids, fprone=fprone)}
 
@@ -157,8 +183,11 @@ class AdversaryModel:
         silent = torch.zeros((B, n), dtype=torch.bool, device=dev)
         values = honest_values
         faulty = setup["faulty"]
-        if cfg.adversary == "crash":
-            silent = faulty & (rnd >= setup["crash_round"])
+        if cfg.adversary == "superset":
+            values, silent = self._inject_superset(seed, inst_ids, rnd, t,
+                                                   honest_values, setup)
+        elif cfg.adversary == "crash":
+            silent = faulty & (prf.rows(rnd, 2) >= setup["crash_round"])
         elif cfg.adversary == "byzantine" and cfg.protocol == "bracha":
             b = bracha_byzantine_code(cfg, seed, inst_ids, rnd, t)
             silent = faulty & (b == 0)
@@ -172,3 +201,55 @@ class AdversaryModel:
         if cfg.count_level:
             return values, silent, torch.zeros((B, 1, n), dtype=torch.bool, device=dev)
         return values, silent, scheduling_bias(cfg, values, faulty, recv_ids)
+
+    def _inject_superset(self, seed, inst_ids, rnd, t, honest_values, setup):
+        """The fused lanes' ``(values, silent)``: crash, the Bracha
+        Byzantine broadcast and the adaptive minority push, each computed
+        on the shared setup and selected by the per-row ``adv_code``. Under
+        Ben-Or the Byzantine rows pass their honest values through, as the
+        static pairing does (the delivery law draws the equivocation)."""
+        cfg = self.cfg
+        faulty = setup["faulty"]
+        code = prf.rows(cfg.adv_code, 2)
+        crash_sil = faulty & (prf.rows(rnd, 2) >= setup["crash_round"])
+        minority = observed_minority(honest_values, faulty)
+        adapt = torch.where(faulty, minority[:, None], honest_values)
+        byz_values, byz_sil = honest_values, torch.zeros_like(faulty)
+        if cfg.protocol == "bracha":
+            b = bracha_byzantine_code(cfg, seed, inst_ids, rnd, t)
+            byz_sil = faulty & (b == 0)
+            v = torch.where(b == 1, 0, torch.where(b == 2, 1, honest_values.to(torch.int64)))
+            byz_values = torch.where(faulty, v.to(torch.uint8), honest_values)
+        values = torch.where(code == 2, byz_values,
+                             torch.where(code >= 3, adapt, honest_values))
+        silent = torch.where(code == 1, crash_sil, (code == 2) & byz_sil)
+        return values, silent
+
+
+class PadAdversary(AdversaryModel):
+    """The lane runner's adversary (``backends/batch.py``): padding replicas
+    (index ≥ the row's ``n_eff``) are silent on every step, so no delivery
+    law or validation rule counts them, and faulty for termination and
+    extraction, so they never gate a decision."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self._pad = None
+        if isinstance(cfg.n_eff, torch.Tensor) or cfg.n_eff != cfg.n:
+            replica = torch.arange(cfg.n, dtype=torch.int64,
+                                   device=prf.rows(cfg.n_eff, 2).device)[None, :]
+            self._pad = replica >= prf.rows(cfg.n_eff, 2)
+
+    def setup(self, seed, inst_ids: torch.Tensor) -> dict:
+        s = super().setup(seed, inst_ids)
+        if self._pad is not None:
+            s = dict(s, faulty=s["faulty"] | self._pad)
+        return s
+
+    def inject(self, seed, inst_ids, rnd, t, honest_values, setup,
+               with_bias: bool = True, recv_ids=None):
+        v, s, b = super().inject(seed, inst_ids, rnd, t, honest_values, setup,
+                                 with_bias, recv_ids)
+        if self._pad is not None:
+            s = s | self._pad
+        return v, s, b

@@ -5,6 +5,10 @@ One round is 2 broadcast steps (report, propose) and a coin. All thresholds
 are absolute in n and f (strict ``2*c > n``). Protocol A (benign adversaries:
 none, crash) and Protocol B (lying adversaries: byzantine and the adaptive
 family) differ only in the thresholds, chosen by ``cfg.lying_adversary``.
+Under the lane runner ``n`` and ``f`` are (B,) per-row tensors, and under
+the fused lanes ``lying_adversary`` is a (B,) bool tensor too: the
+thresholds then take the arithmetic forms ``n + f·lying`` and
+``1 + f·lying``, equal to the branches for both values.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
+from byzantinerandomizedconsensus_tpu_torch.ops.prf import rows
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
@@ -51,8 +56,13 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
         return v, (s if msil is None else s | msil), b
 
     lying = cfg.lying_adversary
-    quorum_rhs = n + f if lying else n
-    adopt_min = f + 1 if lying else 1
+    if isinstance(lying, torch.Tensor):
+        lyi = lying.to(torch.int64)
+        quorum_rhs, adopt_min = n + f * lyi, 1 + f * lyi
+    else:
+        quorum_rhs = n + f if lying else n
+        adopt_min = f + 1 if lying else 1
+    quorum_rhs, adopt_min = rows(quorum_rhs, 2), rows(adopt_min, 2)
     one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
                       for v in (1, 0, 2))
 
@@ -74,7 +84,11 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
     adopt = c >= adopt_min
     new_est = torch.where(adopt, w, coin)
-    decide_now = (2 * c > n + f) if lying else (c >= f + 1)
+    n2, f2 = rows(n, 2), rows(f, 2)
+    if isinstance(lying, torch.Tensor):
+        decide_now = torch.where(rows(lying, 2), 2 * c > n2 + f2, c >= f2 + 1)
+    else:
+        decide_now = (2 * c > n2 + f2) if lying else (c >= f2 + 1)
     if stats is not None:
         stats["coin_words"] = coins.coin_words(cfg, upd & ~adopt)
 

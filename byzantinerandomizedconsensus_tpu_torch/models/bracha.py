@@ -12,6 +12,7 @@ import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults, validation
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
+from byzantinerandomizedconsensus_tpu_torch.ops.prf import rows
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
@@ -35,6 +36,10 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
 
     ``obs``, when a dict, receives each step's counter side channel
     (``models/delivery.py::make_counts``, ``obs/counters.py``).
+
+    Under the lane runner (``backends/batch.py``) ``cfg``'s ``n_eff`` and
+    ``f``, the key and ``rnd`` may be (B,) per-row tensors; the thresholds
+    read them as (B, 1) columns.
     """
     # Committee configs evaluate the thresholds over (C, f_C) (spec §10.3).
     n, f = committee.quorum_params(cfg)
@@ -79,7 +84,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     c1_0, c1_1 = counts(1, h1, v1, s1, b1)
     one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
                       for v in (1, 0, 2))
-    d = torch.where(2 * c1_1 > n, one, torch.where(2 * c1_0 > n, zero, bot))
+    n2, f2 = rows(n, 2), rows(f, 2)  # (B, 1) under the lane runner
+    d = torch.where(2 * c1_1 > n2, one, torch.where(2 * c1_0 > n2, zero, bot))
 
     # Step 2 — broadcast d (bot = 2 is not counted); validated against G1.
     h2 = gather(d)
@@ -91,8 +97,8 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
     c = torch.where(w == 1, c2_1, c2_0)
 
     coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
-    decide_now = c >= 2 * f + 1
-    adopt = c >= f + 1
+    decide_now = c >= 2 * f2 + 1
+    adopt = c >= f2 + 1
     new_est = torch.where(adopt, w, coin)
     if stats is not None:
         stats["coin_words"] = coins.coin_words(cfg, upd & ~adopt)

@@ -3,6 +3,8 @@
 ``local``  — an independent fair bit per (instance, round, replica).
 ``shared`` — one common bit per (instance, round), the keyed-PRF stub of a
 threshold-signature coin.
+``superset`` — the fused lanes' law (``backends/batch.py``): both are drawn
+and the per-row ``cfg.coin_code`` (0 local, 1 shared) selects.
 """
 
 from __future__ import annotations
@@ -19,14 +21,19 @@ def coin_bits(cfg, seed, inst_ids: torch.Tensor, rnd: int, recv_ids=None) -> tor
     inst = inst_ids.to(torch.int64)[:, None]
     B = inst.shape[0]
     replica = receivers(cfg, recv_ids, inst.device)[None, :]
-    if cfg.coin == "local":
-        return prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, replica, 0,
-                           prf.LOCAL_COIN, pack=cfg.pack_version).to(torch.uint8)
-    if cfg.coin != "shared":
+    if cfg.coin not in ("local", "shared", "superset"):
         raise ValueError(f"unknown coin {cfg.coin!r}")
+    if cfg.coin != "shared":
+        local = prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, replica, 0,
+                            prf.LOCAL_COIN, pack=cfg.pack_version).to(torch.uint8)
+        if cfg.coin == "local":
+            return local
     bit = prf.prf_bit(seed, inst, rnd, prf.COIN_STEP, 0, 0, prf.SHARED_COIN,
                       pack=cfg.pack_version).to(torch.uint8)
-    return bit.expand(B, replica.shape[1])
+    shared = bit.expand(B, replica.shape[1])
+    if cfg.coin == "shared":
+        return shared
+    return torch.where(prf.rows(cfg.coin_code, 2) == 1, shared, local)
 
 
 def coin_words(cfg, takes_coin: torch.Tensor) -> torch.Tensor:

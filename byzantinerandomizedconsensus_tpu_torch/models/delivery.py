@@ -15,7 +15,8 @@ from __future__ import annotations
 
 from byzantinerandomizedconsensus_tpu_torch.models.committee import check_committee_supported
 from byzantinerandomizedconsensus_tpu_torch.models.faults import check_faults_supported
-from byzantinerandomizedconsensus_tpu_torch.obs.counters import CountersUnsupported, step_stats
+from byzantinerandomizedconsensus_tpu_torch.obs.counters import (
+    CountersUnsupported, real_receivers, step_stats)
 from byzantinerandomizedconsensus_tpu_torch.ops import committee, keys_step, urn, urn2, urn3
 
 _COUNTS_FNS = {"urn": urn.counts_fn, "urn2": urn2.counts_fn, "urn3": urn3.counts_fn,
@@ -82,7 +83,9 @@ def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
         if obs is None:
             return law_counts(t, honest, values, silent, bias, need, stats)
         law_stats = {}
-        c0, c1 = law_counts(t, honest, values, silent, bias, None, law_stats)
+        # A padded lane row counts its real receivers only.
+        real = real_receivers(cfg, values.shape[-1], values.device)
+        c0, c1 = law_counts(t, honest, values, silent, bias, real, law_stats)
         obs[t] = {"c0": c0, "c1": c1, "silent": silent, "fsil": fsil, "fside": fside,
                   "stats": step_stats(cfg, seed, inst_ids, rnd, t, c0.shape[-1],
                                       law_stats)}

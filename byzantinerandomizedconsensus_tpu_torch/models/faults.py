@@ -15,9 +15,13 @@ giving
 
 Every schedule draws only from the §3.2 fault-prone set (the f replicas the
 adversary would pick), so a run never has more than f misbehaving replicas.
-u32 words are carried in int64, as everywhere in the port. The reference's
-``superset`` law belongs to its batched lanes, which the port does not have:
-it raises by name.
+u32 words are carried in int64, as everywhere in the port.
+
+Under the lane runner (``backends/batch.py``) ``cfg.f``, ``cfg.n_eff`` and
+``cfg.crash_window`` are (rows,) int64 tensors and the round may be one too
+(the compacted grid); the fused lanes' ``superset`` kind draws the recover
+and the partition setups both and selects per row by ``cfg.faults_code``
+(0 none, 1 recover, 2 partition, 3 omission).
 """
 
 from __future__ import annotations
@@ -44,27 +48,48 @@ def check_faults_supported(cfg, where: str, exc=FaultsUnsupported) -> None:
 
 
 def _check_kind(cfg) -> None:
-    if cfg.faults == "superset":
+    if cfg.faults == "superset" and not hasattr(cfg, "faults_code"):
         raise NotImplementedError(
-            "faults='superset' is the reference's batched-lane law "
-            "(backends/batch.py), which is not ported")
-    if cfg.faults not in FAULT_KINDS:
+            "faults='superset' is the fused lanes' law: it selects by per-row "
+            "codes, which only a lane config carries (backends/batch.py::"
+            "FusedLaneConfig)")
+    if cfg.faults not in FAULT_KINDS + ("superset",):
         raise ValueError(f"unknown faults {cfg.faults!r}")
 
 
 def fault_prone_mask(cfg, seed, inst_ids: torch.Tensor) -> torch.Tensor:
     """(B, n) bool — the f replicas with the smallest FAULTY_RANK keys
     ``(rank & KEY_MASK) | replica``. The keys are distinct (the low bits are
-    the replica), so the f-th smallest is exact."""
+    the replica), so the f-th smallest is exact.
+
+    A lane row (``backends/batch.py``) with ``n_eff`` below the padded
+    width forces its padding replicas' keys past every real key and masks
+    them out; a per-row ``f`` selects each row's f-th smallest key, and
+    ``f = 0`` selects none."""
     B, dev = inst_ids.shape[0], inst_ids.device
-    if cfg.f == 0:
+    f = cfg.f
+    f_static = not isinstance(f, torch.Tensor)
+    if f_static and f == 0:
         return torch.zeros((B, cfg.n), dtype=torch.bool, device=dev)
     replica = torch.arange(cfg.n, dtype=torch.int64, device=dev)[None, :]
     rank = prf.prf_u32(seed, inst_ids.to(torch.int64)[:, None], 0, 0, replica, 0,
                        prf.FAULTY_RANK, pack=cfg.pack_version)
     key = (rank & prf.KEY_MASK[cfg.pack_version]) | replica
-    kth = torch.kthvalue(key, cfg.f, dim=-1).values
-    return key <= kth[:, None]
+    n_eff = cfg.n_eff
+    padded = isinstance(n_eff, torch.Tensor) or n_eff != cfg.n
+    if padded:
+        real = replica < prf.rows(n_eff, 2)
+        key = torch.where(real, key, prf.MASK32)
+    if f_static:
+        kth = torch.kthvalue(key, f, dim=-1).values
+        mask = key <= kth[:, None]
+    else:
+        idx = (torch.clamp(f, min=1) - 1).to(torch.int64)[:, None]
+        kth = torch.gather(torch.sort(key, dim=-1).values, 1, idx)
+        mask = (key <= kth) & (f > 0)[:, None]
+    if padded:
+        mask = mask & real
+    return mask
 
 
 def setup_faults(cfg, seed, inst_ids: torch.Tensor, fprone=None):
@@ -75,7 +100,8 @@ def setup_faults(cfg, seed, inst_ids: torch.Tensor, fprone=None):
     (B,) int32 epoch ``[part_start, part_heal)``. Omission draws per round.
     ``fprone``, when the caller holds the §3.2 selection already (the faulty
     set of any adversary but ``none`` is the same set), is taken as it is
-    instead of sorting again."""
+    instead of sorting again. The fused lanes' ``superset`` kind draws the
+    recover and the partition state both."""
     _check_kind(cfg)
     if cfg.faults == "none":
         return None
@@ -84,16 +110,17 @@ def setup_faults(cfg, seed, inst_ids: torch.Tensor, fprone=None):
     inst = inst1[:, None]
     replica = torch.arange(cfg.n, dtype=torch.int64, device=inst_ids.device)[None, :]
     w = cfg.crash_window
+    w2 = prf.rows(w, 2)
     if fprone is None:
         fprone = fault_prone_mask(cfg, seed, inst_ids)
     out = {"fprone": fprone}
-    if cfg.faults == "recover":
-        down = prf.prf_u32(seed, inst, 0, 0, replica, 0, prf.FAULT_CRASH, pack=pack) % w
+    if cfg.faults in ("recover", "superset"):
+        down = prf.prf_u32(seed, inst, 0, 0, replica, 0, prf.FAULT_CRASH, pack=pack) % w2
         length = prf.prf_u32(seed, inst, 0, 0, replica, 0, prf.FAULT_HEAL,
-                             pack=pack) % (2 * w)
+                             pack=pack) % (2 * w2)
         out["down_at"] = down.to(torch.int32)
         out["up_at"] = (down + length + 1).to(torch.int32)
-    elif cfg.faults == "partition":
+    if cfg.faults in ("partition", "superset"):
         side = prf.prf_u32(seed, inst, 0, 0, replica, 0, prf.FAULT_SIDE, pack=pack) & 1
         out["side"] = (side.to(torch.uint8) * out["fprone"].to(torch.uint8))
         start = prf.prf_u32(seed, inst1, 0, 0, 0, 0, prf.FAULT_EPOCH, pack=pack) % w
@@ -132,16 +159,26 @@ def round_masks(cfg, seed, inst_ids: torch.Tensor, rnd, fsetup, stats=None):
         return None, None
     _check_kind(cfg)
     fprone = fsetup["fprone"]
-    if cfg.faults == "recover":
-        return fprone & (rnd >= fsetup["down_at"]) & (rnd < fsetup["up_at"]), None
-    if cfg.faults == "partition":
+    r2 = prf.rows(rnd, 2)
+    if cfg.faults in ("recover", "superset"):
+        fsil_rec = fprone & (r2 >= fsetup["down_at"]) & (r2 < fsetup["up_at"])
+        if cfg.faults == "recover":
+            return fsil_rec, None
+    if cfg.faults in ("partition", "superset"):
         active = (rnd >= fsetup["part_start"]) & (rnd < fsetup["part_heal"])
-        return None, torch.where(active[:, None], fsetup["side"],
-                                 torch.zeros_like(fsetup["side"]))
+        fside = torch.where(active[:, None], fsetup["side"],
+                            torch.zeros_like(fsetup["side"]))
+        if cfg.faults == "partition":
+            return None, fside
     drawn = fprone & omission_gate(cfg, seed, inst_ids, rnd)[:, None]
     if stats is not None:
         stats["fault_words"] = 1 + drawn.sum(dim=-1, dtype=torch.int64)
-    return drawn & omission_bits(cfg, seed, inst_ids, rnd), None
+    fsil_om = drawn & omission_bits(cfg, seed, inst_ids, rnd)
+    if cfg.faults == "omission":
+        return fsil_om, None
+    code = prf.rows(cfg.faults_code, 2)
+    fsil = torch.where(code == 1, fsil_rec, (code == 3) & fsil_om)
+    return fsil, torch.where(code == 2, fside, torch.zeros_like(fside))
 
 
 def cross_silent(fside: torch.Tensor, recv_ids=None) -> torch.Tensor:

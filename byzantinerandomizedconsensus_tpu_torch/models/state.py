@@ -6,6 +6,10 @@ reference's keys and dtypes: ``est`` and ``decided_val`` uint8 (B, R),
 the sharded path, a shard of them (``recv_ids``). The ``*_from_numpy``
 functions carry a reference state (numpy arrays) into the port, so both round
 bodies can start from the same mid-run state.
+
+Under the fused lanes (``backends/batch.py``) ``cfg.init`` is
+``"superset"``: all four init laws are evaluated and the per-row
+``cfg.init_code`` (0 random, 1 all0, 2 all1, 3 split) selects.
 """
 
 from __future__ import annotations
@@ -29,11 +33,17 @@ def init_est(cfg, seed, inst_ids: torch.Tensor, recv_ids=None) -> torch.Tensor:
         return torch.ones((B, R), dtype=torch.uint8, device=dev)
     if cfg.init == "split":
         return (replica & 1).to(torch.uint8).expand(B, R).contiguous()
-    if cfg.init != "random":
+    if cfg.init not in ("random", "superset"):
         raise ValueError(f"unknown init {cfg.init!r}")
     inst = inst_ids.to(torch.int64)[:, None]
-    return prf.prf_bit(seed, inst, 0, 0, replica, 0, prf.INIT_EST,
+    rand = prf.prf_bit(seed, inst, 0, 0, replica, 0, prf.INIT_EST,
                        pack=cfg.pack_version).to(torch.uint8)
+    if cfg.init == "random":
+        return rand
+    code = prf.rows(cfg.init_code, 2)
+    split = (replica & 1).to(torch.uint8)
+    return torch.where(code == 0, rand, torch.where(
+        code == 1, 0, torch.where(code == 2, 1, split))).to(torch.uint8)
 
 
 def init_state(cfg, seed, inst_ids: torch.Tensor, recv_ids=None) -> dict:
@@ -103,16 +113,18 @@ _FAULT_DTYPES = {"fprone": torch.bool, "down_at": torch.int32, "up_at": torch.in
 
 def setup_from_numpy(setup_np: dict, device) -> dict:
     """The reference's adversary setup (``faulty``, ``crash_round`` and the
-    §9 ``faults`` entry) as the port's tensors on ``device``. The
-    reference's ``superset`` schedule, which carries the recover and the
-    partition state at once for its batched lanes, is refused by name."""
+    §9 ``faults`` entry) as the port's tensors on ``device``, for one
+    config's static schedule. The fused lanes' ``superset`` schedule, which
+    carries the recover and the partition state at once, is refused by name:
+    a lane record restores its rows through ``backends/compaction.py``."""
     def tensor(x, dtype):
         return torch.tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
     fs = setup_np.get("faults")
     if fs is not None and "down_at" in fs and "side" in fs:
         raise NotImplementedError(
-            "fault schedules of the reference's 'superset' lanes are not ported")
+            "fault schedules of the fused lanes' 'superset' law hold per-row "
+            "codes; restore them through backends/compaction.py::run_bucket")
     return {
         "faulty": tensor(setup_np["faulty"], torch.bool),
         "crash_round": tensor(setup_np["crash_round"], torch.int32),

@@ -1,7 +1,8 @@
 """Bracha message validation at count level (spec/PROTOCOL.md §5.1b), in torch.
 
 Invalid messages join the silent set *before* the delivery draw, so they never
-take a wait-quota slot.
+take a wait-quota slot. Under the lane runner ``(n, f)`` are (B,) per-row
+tensors, which compare against the (B,) global counts as they stand.
 """
 
 from __future__ import annotations
@@ -39,8 +40,12 @@ def validate_step2(cfg, values, g1_0, g1_1, nf=None) -> torch.Tensor:
     okv1 = g1_1 >= n // 2 + 1
     okv0 = g1_0 >= n // 2 + 1
     # z = bot: some q-subset of valid step-1 messages has no > n/2 majority.
-    lo = torch.clamp(torch.clamp(q - g1_0, min=0), min=q - n // 2)
-    hi = torch.clamp(torch.clamp(g1_1, max=q), max=n // 2)
+    if isinstance(q, torch.Tensor):  # per-row (n, f) of the lane runner
+        lo = torch.maximum(torch.clamp(q - g1_0, min=0), q - n // 2)
+        hi = torch.minimum(torch.minimum(g1_1.to(q.dtype), q), n // 2)
+    else:
+        lo = torch.clamp(torch.clamp(q - g1_0, min=0), min=q - n // 2)
+        hi = torch.clamp(torch.clamp(g1_1, max=q), max=n // 2)
     okbot = lo <= hi
     ok = torch.where(values == 1, okv1[:, None],
                      torch.where(values == 0, okv0[:, None], okbot[:, None]))

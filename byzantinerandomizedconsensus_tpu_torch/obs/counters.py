@@ -18,11 +18,18 @@ exactly (a round adds at most steps·n² < 2³², and the round cap is < 2¹⁶)
 The fused and per-step CUDA kernels compute delivery and tally in-kernel and
 have no side channel: their backends raise :class:`CountersUnsupported`
 rather than count a different code path.
+
+Under the lane runner (``backends/batch.py``) a row may hold fewer real
+replicas (``n_eff``) than the padded width: every sum over receivers masks
+the padding receivers (:func:`real_receivers`), so a padded lane's totals
+equal the per-config run's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from byzantinerandomizedconsensus_tpu_torch.ops import prf
 
 # v2 (spec §9): fault-attributed counters for configs with a fault schedule,
 # and a partition-aware ``dropped@ph`` law. v3 (spec §10): committee configs
@@ -94,6 +101,15 @@ def zeros(cfg, batch: int, device=None) -> torch.Tensor:
                        device=device)
 
 
+def real_receivers(cfg, R: int, device):
+    """(B, R) bool — the receivers below each row's ``n_eff``, or ``None``
+    for an unpadded config."""
+    ne = cfg.n_eff
+    if not isinstance(ne, torch.Tensor) and ne == R:
+        return None
+    return torch.arange(R, device=device)[None, :] < prf.rows(ne, 2)
+
+
 def step_stats(cfg, seed, inst_ids: torch.Tensor, rnd, t, n_recv: int,
                law_stats: dict) -> dict:
     """One step's sampler counters under the reference's laws, (B,) int64
@@ -102,18 +118,23 @@ def step_stats(cfg, seed, inst_ids: torch.Tensor, rnd, t, n_recv: int,
     one word per receiver, and two per receiver under the committee family,
     with the realized committee size beside them."""
     B, dev = inst_ids.shape[0], inst_ids.device
+    if real_receivers(cfg, n_recv, dev) is not None:
+        n_recv = cfg.n_eff  # the real receivers of each row
     if cfg.delivery == "urn":
         return {"urn_draws": law_stats["urn_draws"]}
     if cfg.delivery == "urn2":
         return {k: law_stats[k] for k in ("chain_trips", "chain_trips_max")}
+    ones = torch.ones((B,), dtype=torch.int64, device=dev)
     if cfg.delivery == "urn3":
-        return {"urn3_words": torch.full((B,), n_recv, dtype=torch.int64, device=dev)}
+        return {"urn3_words": ones * n_recv}
     if cfg.delivery == "committee":
         from byzantinerandomizedconsensus_tpu_torch.ops import committee
 
         member = committee.membership_plane(cfg, seed, inst_ids, rnd, t)
-        return {"committee_draws": torch.full((B,), 2 * n_recv, dtype=torch.int64,
-                                              device=dev),
+        real = real_receivers(cfg, member.shape[-1], dev)
+        if real is not None:
+            member = member & real
+        return {"committee_draws": ones * (2 * n_recv),
                 "committee_members": member.sum(dim=-1, dtype=torch.int64)}
     return {}
 
@@ -133,6 +154,14 @@ def round_increments(cfg, obs: dict) -> torch.Tensor:
         k = committee.committee_quota(cfg.n_eff, cfg.f)
     else:
         k = cfg.n_eff - cfg.f - 1
+    k = prf.rows(k, 2)
+    real = real_receivers(cfg, obs[0]["c0"].shape[-1], dev)
+
+    def rsum(x):
+        """(B,) sum over the receivers, padding receivers masked out."""
+        if real is not None:
+            x = torch.where(real, x, 0)
+        return x.sum(dim=-1, dtype=i64)
 
     def live_by_side(live, side):
         """(B,) live senders on side 0 and on side 1."""
@@ -141,8 +170,8 @@ def round_increments(cfg, obs: dict) -> torch.Tensor:
     cols = []
     for t in range(steps):
         e = obs[t]
-        cols.append(e["c0"].sum(dim=-1, dtype=i64))
-        cols.append(e["c1"].sum(dim=-1, dtype=i64))
+        cols.append(rsum(e["c0"]))
+        cols.append(rsum(e["c1"]))
         # Every delivery law drops max(0, L_v − k) live messages per
         # receiver (spec §4); under a §9 partition L_v counts only the
         # receiver's own side.
@@ -154,9 +183,9 @@ def round_increments(cfg, obs: dict) -> torch.Tensor:
             p0, p1 = live_by_side(live, fside)
             tot = torch.where(fside == 1, p1[:, None], p0[:, None])
         L = tot - live.to(i64)
-        cols.append(torch.clamp(L - k, min=0).sum(dim=-1))
-    cols.append(torch.full((batch,), cfg.n_eff if cfg.coin == "local" else 1,
-                           dtype=i64, device=dev))
+        cols.append(rsum(torch.clamp(L - k, min=0)))
+    cols.append(torch.ones((batch,), dtype=i64, device=dev)
+                * (cfg.n_eff if cfg.coin == "local" else 1))
     cols.append(torch.ones((batch,), dtype=i64, device=dev))
     for name in _SAMPLER_COUNTERS.get(cfg.delivery, ()):
         per_step = [obs[t]["stats"][name].to(i64) for t in range(steps)]
@@ -171,14 +200,14 @@ def round_increments(cfg, obs: dict) -> torch.Tensor:
         for t in range(steps):
             e = obs[t]
             fsil, fside = e.get("fsil"), e.get("fside")
-            cols.append(zero if fsil is None else fsil.sum(dim=-1, dtype=i64))
+            cols.append(zero if fsil is None else rsum(fsil))
             if fside is None:
                 cols.append(zero)
                 continue
             p0, p1 = live_by_side(~e["silent"], fside)
             # A receiver on side s misses every live sender on side 1 − s.
             cross = torch.where(fside == 1, p0[:, None], p1[:, None])
-            cols.append(cross.sum(dim=-1))
+            cols.append(rsum(cross))
     return torch.stack(cols, dim=1)
 
 

@@ -22,7 +22,9 @@ a member. The fused CUDA kernel runs the same law per thread
 (``csrc/fused_round.cuh``: ``committee_counts``).
 
 The integer laws are the reference's static compare-sums (no log2 or isqrt
-library call), on python ints.
+library call), on python ints or, under the lane runner, on (B,) per-row
+int64 tensors of ``n_eff`` and ``f``. Membership is drawn mod ``n_eff``, so
+a padded lane's real replicas see the draws of the unpadded config.
 """
 
 from __future__ import annotations
@@ -40,16 +42,22 @@ _CL2_BITS = 20
 _ISQRT_MAX = 13
 
 
-def committee_size(n: int) -> int:
+def committee_size(n):
     """C(n) = min(n, max(16, 8·⌈log₂ n⌉)) — spec §10.1."""
+    if isinstance(n, torch.Tensor):
+        cl2 = sum(((1 << k) < n).to(torch.int64) for k in range(_CL2_BITS))
+        return torch.minimum(n, torch.clamp(SIZE_SLOPE * cl2, min=SIZE_FLOOR))
     cl2 = sum(1 for k in range(_CL2_BITS) if (1 << k) < n)
     return min(int(n), max(SIZE_FLOOR, SIZE_SLOPE * cl2))
 
 
-def committee_fault_budget(n: int, f: int) -> int:
+def committee_fault_budget(n, f):
     """f_C (spec §10.3): ``f`` itself when the committee is the full mesh
     (C = n), else ``⌈C·f/n⌉ + ⌊√C⌋``."""
     c = committee_size(n)
+    if isinstance(c, torch.Tensor):
+        isq = sum((s * s <= c).to(torch.int64) for s in range(1, _ISQRT_MAX + 1))
+        return torch.where(c == n, f, (c * f + n - 1) // n + isq)
     if c == n:
         return int(f)
     isq = sum(1 for s in range(1, _ISQRT_MAX + 1) if s * s <= c)
@@ -69,7 +77,8 @@ def membership_plane(cfg, seed, inst_ids: torch.Tensor, rnd, t, recv_ids=None) -
     inst = inst_ids.to(torch.int64)[:, None]
     replica = prf.receivers(cfg, recv_ids, inst_ids.device)[None, :]
     word = prf.prf_u32(seed, inst, rnd, t, replica, 0, prf.COMMITTEE, pack=cfg.pack_version)
-    return (word % cfg.n) < committee_size(cfg.n)
+    ne = prf.rows(cfg.n_eff, 2)
+    return (word % ne) < committee_size(ne)
 
 
 def step_silence(cfg, seed, inst_ids: torch.Tensor, rnd, t, stats=None):
@@ -106,7 +115,7 @@ def counts_fn(cfg, seed, inst_ids, rnd, t, values, silent, faulty=None,
     own_val, m, st, L, _ = urn.lane_setup(cfg, values, silent, faulty, honest,
                                           seed, inst_ids, rnd, t, fside=fside,
                                           recv_ids=recv_ids)
-    D = torch.clamp(L - committee_quota(cfg.n, cfg.f), min=0)
+    D = torch.clamp(L - prf.rows(committee_quota(cfg.n_eff, cfg.f), 2), min=0).to(L.dtype)
     if stats is not None:
         urn3.count_work(stats, "committee_draws", D, st is not None, stats_lanes)
     inst = inst_ids.to(torch.int64)[:, None]

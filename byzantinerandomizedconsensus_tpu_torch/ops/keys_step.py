@@ -32,9 +32,9 @@ import threading
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import (
-    equivocation_values, scheduling_bias, two_faced)
+    equivocation_values, maybe_two_faced, scheduling_bias)
 from byzantinerandomizedconsensus_tpu_torch.models.faults import cross_silent
-from byzantinerandomizedconsensus_tpu_torch.ops import _step, masks, tally
+from byzantinerandomizedconsensus_tpu_torch.ops import _step, masks, prf, tally
 
 #: (instance, receiver, sender) key triples the plain version holds at once:
 #: about 100 bytes each across the int64 PRF temporaries (the keys, and under
@@ -91,7 +91,11 @@ def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
     then gains ``equivocation_words``, the (receiver, delivered faulty
     sender) pairs, own message included, each one PRF word of the
     kernel. The rows are the receivers ``recv_ids`` (global indices,
-    default all n): the counts are (B, R)."""
+    default all n): the counts are (B, R).
+
+    Under the lane runner the config's per-row operands, the key and the
+    round are sliced with the instances (``take_rows``); the fused lanes'
+    ``superset`` rows draw the equivocation where their code is Byzantine's."""
     if fside is not None and not bool(fside.any()):
         fside = None
     R = cfg.n if recv_ids is None else recv_ids.shape[0]
@@ -100,15 +104,20 @@ def step_counts_plain(cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
     parts = []
     for lo in range(0, inst_ids.shape[0], per):
         hi = lo + per
+        sl = slice(lo, hi)
+        c = cfg.take_rows(sl) if hasattr(cfg, "take_rows") else cfg
+        k, r = prf.take_rows(seed, sl), prf.take_rows(rnd, sl)
         v = values[lo:hi]
-        b = (scheduling_bias(cfg, v, faulty[lo:hi], recv_ids) if bias is None
+        b = (scheduling_bias(c, v, faulty[lo:hi], recv_ids) if bias is None
              else bias[lo:hi])
         x = None if fside is None else cross_silent(fside[lo:hi], **shard)
-        mask = masks.delivery_mask(cfg, seed, inst_ids[lo:hi], rnd, step,
+        mask = masks.delivery_mask(c, k, inst_ids[lo:hi], r, step,
                                    silent[lo:hi], b, recv_ids=recv_ids, xsilent=x)
-        if two_faced(cfg):
-            v = equivocation_values(cfg, seed, inst_ids[lo:hi], rnd, step, v,
-                                    faulty[lo:hi], recv_ids)
+        tf = maybe_two_faced(c)
+        if tf is not False:
+            eq = equivocation_values(c, k, inst_ids[lo:hi], r, step, v,
+                                     faulty[lo:hi], recv_ids)
+            v = eq if tf is True else torch.where(tf[:, None, None], eq, v[:, None, :])
             if stats is not None:
                 stats["equivocation_words"] = stats.get("equivocation_words", 0) + int(
                     (mask & faulty[lo:hi, None, :]).sum())

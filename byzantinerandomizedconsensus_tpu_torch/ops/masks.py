@@ -42,13 +42,19 @@ def combined_keys(cfg, seed, inst_ids: torch.Tensor, rnd, t, silent, bias,
     return torch.where(recv == send, recv, combined)
 
 
-def mask_from_keys(combined: torch.Tensor, n_deliver: int, silent,
+def mask_from_keys(combined: torch.Tensor, n_deliver, silent,
                    recv_ids=None, xsilent=None) -> torch.Tensor:
     """(B, R, n) bool: the ``n_deliver`` smallest keys of each receiver row,
     minus silent senders (and the (B, R, n) ``xsilent`` cut), plus the
-    receiver's own message."""
+    receiver's own message. ``n_deliver`` is an int, or the lane runner's
+    (B,) per-row tensor."""
     n, dev = combined.shape[-1], combined.device
-    kth = torch.kthvalue(combined, n_deliver, dim=-1).values
+    if isinstance(n_deliver, torch.Tensor):
+        idx = (n_deliver - 1).to(torch.int64)[:, None, None].expand(
+            combined.shape[0], combined.shape[1], 1)
+        kth = torch.gather(torch.sort(combined, dim=-1).values, 2, idx)[..., 0]
+    else:
+        kth = torch.kthvalue(combined, n_deliver, dim=-1).values
     mask = combined <= kth[..., None]
     recv = (torch.arange(n, device=dev) if recv_ids is None
             else recv_ids.to(device=dev, dtype=torch.int64))

@@ -73,6 +73,9 @@ FAULT_SIDE = 12
 FAULT_EPOCH = 13
 FAULT_OMIT = 14
 COMMITTEE = 15
+#: The ``send`` coordinate of the spec §11 session word under COMMITTEE
+#: (§10 uses send 0 and 1 only).
+SESSION_SEND = 2
 
 # Urn-delivery LCG (spec §4b): full period mod 2^32.
 URN_LCG_A = 0x915F77F5
@@ -98,10 +101,13 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
     """Threefry-2x32, 20 rounds, first output word. ``k0``/``k1`` are python
-    ints; ``x0``/``x1`` int64 tensors of u32 words (broadcastable)."""
-    k0, k1 = int(k0) & MASK32, int(k1) & MASK32
+    ints, or int64 tensors of u32 key words that broadcast against ``x0``
+    and ``x1`` (one key per row of the lane runner); ``x0``/``x1`` int64
+    tensors of u32 words (broadcastable)."""
+    if not isinstance(k0, torch.Tensor):
+        k0, k1 = int(k0) & MASK32, int(k1) & MASK32
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -117,6 +123,17 @@ def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor) -> torch.
     return x0
 
 
+def take_rows(x, sl: slice):
+    """The rows ``sl`` of a per-row lane operand: a (rows,) tensor, or a
+    ``(k0, k1)`` key of them; anything else (python ints, 0-dim tensors)
+    passes through."""
+    if isinstance(x, tuple):
+        return tuple(take_rows(k, sl) for k in x)
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x[sl]
+    return x
+
+
 def receivers(cfg, recv_ids, device) -> torch.Tensor:
     """(R,) int64 global receiver indices: ``recv_ids`` (a replica shard of
     the sharded path, ``parallel/sharded.py``) or all n."""
@@ -125,10 +142,13 @@ def receivers(cfg, recv_ids, device) -> torch.Tensor:
     return recv_ids.to(device=device, dtype=torch.int64)
 
 
-def seed_key(seed) -> tuple[int, int]:
+def seed_key(seed) -> tuple:
     """Split a 64-bit python int seed into the (k0, k1) u32 key pair; an
-    already-split ``(k0, k1)`` tuple passes through."""
+    already-split ``(k0, k1)`` tuple passes through, as python ints, or as
+    the lane runner's (rows,) int64 tensors of per-row key words."""
     if isinstance(seed, tuple):
+        if isinstance(seed[0], torch.Tensor):
+            return seed
         return int(seed[0]) & MASK32, int(seed[1]) & MASK32
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     return seed & MASK32, (seed >> 32) & MASK32
@@ -140,6 +160,15 @@ def _word(x, device) -> torch.Tensor:
     return torch.tensor(int(x), dtype=torch.int64, device=device)
 
 
+def rows(x, ndim: int):
+    """A per-row lane operand viewed to broadcast against ``ndim``-dim
+    tensors whose leading axis is the row axis: a (rows,) tensor becomes
+    (rows, 1, ..., 1); python ints and 0-dim tensors pass through."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1 and ndim > 1:
+        return x.view((-1,) + (1,) * (ndim - 1))
+    return x
+
+
 def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
             device=None) -> torch.Tensor:
     """One PRF evaluation per spec §2, as an int64 tensor of u32 words.
@@ -147,7 +176,10 @@ def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
     ``seed`` is a python int or a ``(k0, k1)`` key; ``instance``, ``rnd``,
     ``recv`` and ``send`` are ints or integer tensors (broadcastable);
     ``step`` and ``purpose`` are ints. ``device`` places the result when
-    every coordinate is a python int.
+    every coordinate is a python int. Under the lane runner
+    (``backends/batch.py``) the key words and the round are per-row
+    operands: (rows,) tensors along the leading axis of ``instance``,
+    viewed here to the coordinates' rank (:func:`rows`).
 
     v1 (n ≤ 1024): x0 = send<<17 | instance,
                    x1 = rnd<<16 | recv<<6 | step<<4 | purpose.
@@ -166,6 +198,10 @@ def prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=1,
     k0, k1 = seed_key(seed)
     instance, rnd, recv, send = (_word(c, device)
                                  for c in (instance, rnd, recv, send))
+    if isinstance(k0, torch.Tensor) or rnd.dim() == 1:
+        nd = max(instance.dim(), recv.dim(), send.dim())
+        rnd = rows(rnd, nd)
+        k0, k1 = rows(k0, nd), rows(k1, nd)
     low = (int(step) << 4) | int(purpose)
     if pack == 3:
         x0 = ((send << 20) | recv) & MASK32
@@ -193,3 +229,29 @@ def prf_bit(seed, instance, rnd, step, recv, send, purpose, pack=1,
             device=None) -> torch.Tensor:
     return prf_u32(seed, instance, rnd, step, recv, send, purpose, pack=pack,
                    device=device) & 1
+
+
+def session_digest(slot, decision) -> int:
+    """The spec §11 decision digest: ``d_0 = slot + 1``; ``d_{i+1} =
+    (URN_LCG_A·d_i + dec_i + 1) mod 2^32`` over the slot's decision vector
+    in instance order, in closed affine form (u32 wraparound cumprod)."""
+    import numpy as np
+
+    dec = np.ravel(np.asarray(decision)).astype(np.uint32)
+    d0 = (int(slot) + 1) & MASK32
+    if dec.size == 0:
+        return d0
+    pw = np.cumprod(np.full(dec.size, URN_LCG_A, dtype=np.uint32), dtype=np.uint32)
+    weights = np.concatenate([np.ones(1, dtype=np.uint32), pw[:-1]])[::-1]
+    acc = int(np.sum(weights * (dec + np.uint32(1)), dtype=np.uint32))
+    return (int(pw[-1]) * d0 + acc) & MASK32
+
+
+def session_chain_seed(seed, slot, decision, pack=1) -> int:
+    """Slot ``slot + 1``'s seed from slot ``slot``'s decision vector (spec
+    §11): one COMMITTEE draw at ``send=SESSION_SEND``, the digest split over
+    the (instance, rnd, recv) coordinates masked to 12/12/6 bits."""
+    dig = session_digest(slot, decision)
+    word = prf_u32(seed, dig & 0xFFF, (dig >> 12) & 0xFFF, 0, (dig >> 24) & 0x3F,
+                   SESSION_SEND, COMMITTEE, pack=pack, device="cpu")
+    return int(word)

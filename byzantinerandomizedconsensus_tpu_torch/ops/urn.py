@@ -8,6 +8,12 @@ side has its own. Each receiver drops ``D = L - (n-f-1)`` of its ``L`` live
 messages, drawn sequentially without replacement from an urn of (stratum,
 value) classes, the biased stratum first. :func:`counts_fn` is the plain version of the urn
 kernel (``ops/urn_step.py``).
+
+Under the lane runner (``backends/batch.py``) ``n_eff`` and ``f`` are (B,)
+per-row tensors. The fused lanes' ``superset`` adversary takes the
+two-stratum structure with per-row strata: the adaptive family's planes on
+its rows, all False elsewhere, under which the two-stratum draws equal the
+single-stratum ones (one urn, drawn in value order).
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import (
-    observed_minority, two_faced)
+    maybe_two_faced, observed_minority)
 from byzantinerandomizedconsensus_tpu_torch.ops import prf
 
 
@@ -66,9 +72,13 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
         """(B, n) -> (B, R): a plane read at the receiver lanes."""
         return x if recv_ids is None else x[:, recv]
 
-    h_lane = (recv >= (cfg.n_eff + 1) // 2)[None, :]
-    if two_faced(cfg):
+    h_lane = recv[None, :] >= prf.rows((cfg.n_eff + 1) // 2, 2)
+    tf = maybe_two_faced(cfg)
+    if tf is not False:
         v0c, v1c = byz_class_values(cfg, seed, inst_ids, rnd, t, honest, faulty)
+        if tf is not True:  # superset rows: the Byzantine code's only
+            v0c = torch.where(tf[:, None], v0c, values)
+            v1c = torch.where(tf[:, None], v1c, values)
         own_val = torch.where(h_lane, at_lanes(v1c), at_lanes(v0c))
     else:
         v0c = v1c = values
@@ -92,14 +102,18 @@ def lane_setup(cfg, values: torch.Tensor, silent: torch.Tensor, faulty=None,
     live_at = at_lanes(live)
     m = [class_total(w) - (live_at & (own_val == w)).to(torch.int32) for w in (0, 1, 2)]
     st = None
-    if cfg.adversary == "adaptive":
+    if cfg.adversary in ("adaptive", "superset"):
         # biased(w, v) = (w == 2) | (w != pref(v)), pref(v) = v >= (n+1)/2.
-        st = [h_lane, ~h_lane, torch.ones_like(h_lane)]
-    elif cfg.adversary == "adaptive_min":
+        st = st_ad = [h_lane, ~h_lane, torch.ones_like(h_lane)]
+    if cfg.adversary in ("adaptive_min", "superset"):
         minority = observed_minority(honest, faulty)[:, None]
-        st = [minority != 0, minority != 1, torch.ones_like(minority, dtype=torch.bool)]
+        st = st_min = [minority != 0, minority != 1,
+                       torch.ones_like(minority, dtype=torch.bool)]
+    if cfg.adversary == "superset":
+        code = prf.rows(cfg.adv_code, 2)
+        st = [torch.where(code == 3, a, (code == 4) & b) for a, b in zip(st_ad, st_min)]
     L = m[0] + m[1] + m[2]
-    D = torch.clamp(L - (cfg.n_eff - cfg.f - 1), min=0)
+    D = torch.clamp(L - prf.rows(cfg.n_eff - cfg.f - 1, 2), min=0).to(L.dtype)
     return own_val, m, st, L, D
 
 

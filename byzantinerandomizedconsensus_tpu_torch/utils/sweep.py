@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 import re
+import time
 from typing import Iterable
 
 import numpy as np
@@ -41,13 +42,15 @@ def run_sweep(
     """Run (or resume) the sweep; returns ``{n: summary with its
     round_histogram}``. ``options`` go to the backend (``device``,
     ``kernel``): the ``torch`` backend runs on the card unless asked for the
-    CPU. ``batched`` needs the batched lane runner, which is not ported: it
-    raises rather than run unbatched."""
-    if batched:
-        raise NotImplementedError(
-            "run_sweep(batched=True) needs the batched lane runner "
-            "(backends/batch.py), which is not ported yet; run the sweep "
-            "unbatched")
+    CPU.
+
+    ``batched`` runs each shard row through the lane runner
+    (``backends/batch.py::run_many``) when the backend has it: sweep points
+    whose n pads to one tier share one lane program and one dispatch per
+    shard, bit-identically. The lanes run ``kernel="plain"`` only, and
+    refuse any other kernel by name. Shards stay per (n, instance range); a
+    batched shard's recorded wall is the dispatch wall split evenly across
+    its lanes."""
     be = get_backend(backend, **options)
     eff_cap = DEFAULT_ROUND_CAP if round_cap is None else round_cap
     _warn_stale_shards(out_dir, delivery, eff_cap, progress)
@@ -65,10 +68,36 @@ def run_sweep(
     ns = list(ns)
     cfgs = {n: point_cfg(n) for n in ns}
     shards_by_n: dict = {n: {} for n in ns}
+    if batched and hasattr(be, "run_many"):
+        for lo in range(0, instances, shard_instances):
+            hi = min(lo + shard_instances, instances)
+            missing = []
+            for n in ns:
+                if checkpoint.have_shard(out_dir, cfgs[n], lo, hi):
+                    shards_by_n[n][lo] = checkpoint.load_shard(
+                        out_dir / checkpoint.shard_name(cfgs[n], lo, hi))
+                else:
+                    missing.append(n)
+            if not missing:
+                continue
+            ids = np.arange(lo, hi, dtype=np.int64)
+            t0 = time.perf_counter()
+            results, _report = be.run_many([cfgs[n] for n in missing],
+                                           inst_ids=[ids] * len(missing))
+            wall = time.perf_counter() - t0
+            for n, res in zip(missing, results):
+                res.wall_s = wall / len(missing)
+                checkpoint.save_shard(out_dir, cfgs[n], res)
+                shards_by_n[n][lo] = res
+            progress(f"sweep shard [{lo},{hi}) batched over n={missing}: "
+                     f"{(hi - lo) * len(missing) / max(wall, 1e-9):.0f} "
+                     "inst/s aggregate")
     for n in ns:
         cfg = cfgs[n]
         for lo in range(0, instances, shard_instances):
             hi = min(lo + shard_instances, instances)
+            if lo in shards_by_n[n]:
+                continue
             if checkpoint.have_shard(out_dir, cfg, lo, hi):
                 shards_by_n[n][lo] = checkpoint.load_shard(
                     out_dir / checkpoint.shard_name(cfg, lo, hi))

@@ -126,13 +126,32 @@ Phases, in order; any failure exits nonzero and prints no result:
    config1 and a Bracha n = 16 config, each rc 0; ``cli run --counters
    --kernel plain`` on the card equal to the CPU's, and under
    ``fused_round`` the unsupported block;
-13. a ``{"kernels": [...]}`` line, the card line, and last
+13. the lane runners (``backends/batch.py``, ``backends/compaction.py``,
+   ``backends/lanestate.py``) on the plain round driver, which launches no
+   kernel (counted: 0 launches of each in every lane run): a strict
+   bucket of 16 Bracha n = 64 urn2 crash configs and a mixed-n set of 16
+   padded to tier 64 through ``run_batch`` twice (1 build, then 0 new
+   entries), every lane per instance against its per-config
+   ``fused_round`` run, the walls beside 16 per-config plain runs and 16
+   per-config K1 runs; 40 fused ``superset`` configs over both protocols,
+   every adversary, schedule, coin and init, n 4-40, caps 64-256, through
+   ``run_fused`` without and with compaction, each against its K1 run;
+   config4 at 100,000 instances through ``run_many(compaction=)`` against
+   K1 per instance, with its wall beside the plain per-chunk run's and
+   K1's and its compaction block; config4 at ids 0-19,999 parked by
+   ``LaneControl`` at the first boundary after a refill, its records
+   round-tripped through JSON and resumed in a fresh grid, equal to the
+   uninterrupted run; ``cli sweep --batched --kernel plain`` at config 5's
+   full size, its 32 shards equal to ``artifacts/sweep_urn2/``, and
+   without ``--kernel plain`` the lane runner's refusal;
+14. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import re
@@ -2148,6 +2167,296 @@ def sweep_bitmatch_phase(card):
     return paths
 
 
+# Phase 13: the lane runners on the plain round driver.
+LANE_STRICT = dict(protocol="bracha", n=64, adversary="crash", coin="shared",
+                   delivery="urn2", instances=2000)
+LANE_MIXED_NS = (40, 48, 56, 64)
+LANE_FUSED_CONFIGS = 40
+LANE_FUSED_INSTANCES = 500
+LANE_FUSED_SEED = 12
+LANE_PARK_IDS = 20_000
+LANE_PARK_WIDTH = 4096
+
+
+def lane_results_equal(res, ref, label):
+    """Per instance: the lane's (rounds, decision) against ``ref``'s."""
+    if not (np.array_equal(np.asarray(res.inst_ids), np.asarray(ref.inst_ids))
+            and np.array_equal(res.rounds, ref.rounds)
+            and np.array_equal(res.decision, ref.decision)):
+        bad = int((res.rounds != ref.rounds).sum() + (res.decision != ref.decision).sum())
+        fail(f"lanes differ from the per-config run on {label}: {bad} mismatches")
+
+
+def lanes_launched_nothing(label):
+    """The lanes run the plain driver: no kernel may have launched."""
+    if sum(read_launches().values()):
+        fail(f"{label} launched kernels {read_launches()}: the lanes run kernel='plain'")
+
+
+def per_config_k1(cfgs, ids=None):
+    """Each config's per-config run through fused_round (plain where the
+    kernel refuses it by name): ``(results, wall_s, refused)``."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.ops.fused_round import FusedUnsupported
+
+    k1, plain = get_backend("torch", kernel="fused"), get_backend("torch", kernel="plain")
+    out, refused = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, cfg in enumerate(cfgs):
+        try:
+            out.append(k1.run(cfg, None if ids is None else ids[i]))
+        except FusedUnsupported:
+            refused += 1
+            out.append(plain.run(cfg, None if ids is None else ids[i]))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, refused
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fused_lane_grid():
+    """The superset grid: ``LANE_FUSED_CONFIGS`` valid configs drawn from a
+    fixed seed over every folded axis, n 4-40, caps 64-256."""
+    import random
+
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    rng = random.Random(LANE_FUSED_SEED)
+    out = []
+    while len(out) < LANE_FUSED_CONFIGS:
+        protocol = FUSED_PROTOCOLS[len(out) % 2]
+        adversary = rng.choice(FUSED_ADVERSARIES)
+        n = rng.randint(4, 40)
+        try:
+            cfg = SimConfig(protocol=protocol, n=n, f=rng.randint(0, f_of(protocol, n, adversary)),
+                            instances=LANE_FUSED_INSTANCES, adversary=adversary,
+                            coin=rng.choice(("local", "shared")), seed=rng.randint(0, 2 ** 32),
+                            round_cap=rng.randint(64, 256), crash_window=rng.randint(1, 8),
+                            init=rng.choice(INITS), delivery="urn2",
+                            faults=rng.choice(FUSED_FAULTS)).validate()
+        except ValueError:
+            continue
+        out.append(cfg)
+    return out
+
+
+def lanes_strict_phase(card):
+    """Phase 13a: the strict bucket and the mixed-n set through run_batch."""
+    from byzantinerandomizedconsensus_tpu_torch.backends import batch
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    lanes = get_plain_backend()
+    strict = [SimConfig(**LANE_STRICT, f=5 + s, seed=s, crash_window=1 + s % 4).validate()
+              for s in range(16)]
+    mixed = [SimConfig(**{**LANE_STRICT, "n": n}, f=(n - 1) // 3, seed=s,
+                       crash_window=1 + s % 4).validate()
+             for s, n in zip(range(16), LANE_MIXED_NS * 4)]
+    buckets = {batch.ShapeBucket.of(c) for c in strict + mixed}
+    if len(buckets) != 1:
+        fail(f"the strict and mixed-n sets span {len(buckets)} buckets")
+    out = {}
+    for label, cfgs in (("strict", strict), ("mixed-n", mixed)):
+        walls = []
+        for rep in range(2):
+            before = lanes.compile_cache_stats()
+            reset_launches()
+            res, wall = timed(lambda: lanes.run_batch(cfgs))
+            lanes_launched_nothing(f"run_batch ({label})")
+            after = lanes.compile_cache_stats()
+            new = after["compiles"] - before["compiles"]
+            want = 1 if (label == "strict" and rep == 0) else 0
+            if new != want or after["hits"] - before["hits"] != 1 - want:
+                fail(f"run_batch ({label}, run {rep + 1}): {new} new cache entries "
+                     f"({before} -> {after}), not {want}")
+            walls.append(wall)
+        k1, k1_wall, refused = per_config_k1(cfgs)
+        for c, a, b in zip(cfgs, res, k1):
+            lane_results_equal(a, b, f"{label} n={c.n} f={c.f} seed={c.seed}")
+        _, plain_wall = timed(lambda: [get_plain_backend().run(c) for c in cfgs])
+        say(f"[lanes] run_batch, {label} bucket {batch.ShapeBucket.of(cfgs[0]).label()}: "
+            f"16 lanes x {LANE_STRICT['instances']} instances equal to 16 per-config "
+            f"fused_round runs instance by instance (0 kernel launches in the lane runs); "
+            f"walls {walls} s (run 1, run 2) against 16 per-config plain runs "
+            f"{plain_wall:.3f} s and 16 per-config K1 runs {k1_wall:.3f} s; cache "
+            f"{lanes.compile_cache_stats()}; {card}")
+        out[label] = {"run_batch_walls_s": walls, "plain_wall_s": plain_wall,
+                      "k1_wall_s": k1_wall}
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def get_plain_backend():
+    """The one card backend on kernel='plain' the lane phase runs on (its
+    compile cache persists across the phase)."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+
+    return get_backend("torch", kernel="plain")
+
+
+def lanes_fused_phase(card):
+    """Phase 13b: the superset grid through run_fused, without and with
+    compaction, each config against its per-config K1 run."""
+    from byzantinerandomizedconsensus_tpu_torch.backends.compaction import CompactionPolicy
+
+    cfgs = fused_lane_grid()
+    k1, k1_wall, refused = per_config_k1(cfgs)
+    out = {"k1_wall_s": k1_wall, "k1_refused": refused}
+    for label, kw in (("fused", {}), ("fused+compaction", {"compaction": CompactionPolicy()})):
+        reset_launches()
+        (res, report), wall = timed(lambda: get_plain_backend().run_fused(cfgs, **kw))
+        lanes_launched_nothing(f"run_fused ({label})")
+        for c, a, b in zip(cfgs, res, k1):
+            lane_results_equal(a, b, f"{label}: {c}")
+        comp = report.get("compaction")
+        say(f"[lanes] run_fused ({label}): {len(cfgs)} superset configs "
+            f"(both protocols, {len(set(c.adversary for c in cfgs))} adversaries, "
+            f"{len(set(c.faults for c in cfgs))} schedules, both coins, "
+            f"{len(set(c.init for c in cfgs))} inits, n {min(c.n for c in cfgs)}-"
+            f"{max(c.n for c in cfgs)}, caps {min(c.round_cap for c in cfgs)}-"
+            f"{max(c.round_cap for c in cfgs)}, {LANE_FUSED_INSTANCES} instances each) in "
+            f"{report['buckets']} bucket(s), each equal to its per-config K1 run "
+            f"({refused} refused by K1, held against plain); wall {wall:.3f} s against "
+            f"40 per-config K1 runs {k1_wall:.3f} s"
+            + (f"; compaction {comp}" if comp else "") + f"; {card}")
+        out[label] = {"wall_s": wall, "compaction": comp}
+    return out
+
+
+def lanes_compacted_phase(card):
+    """Phase 13c: config4 at full width through run_many(compaction=)."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.backends.compaction import CompactionPolicy
+
+    c4 = preset("config4")
+    reset_launches()
+    (res, report), wall = timed(lambda: get_plain_backend().run_many(
+        [c4], compaction=CompactionPolicy()))
+    lanes_launched_nothing("run_many(compaction=) on config4")
+    (k1,), k1_wall, _ = per_config_k1([c4])
+    lane_results_equal(res[0], k1, "config4 through the compacted grid")
+    plain, plain_wall = timed(lambda: get_plain_backend().run(c4))
+    lane_results_equal(plain, k1, "config4's plain per-chunk run")
+    comp = report["compaction"]
+    say(f"[lanes] config4, {c4.instances} instances, through run_many(compaction="
+        f"CompactionPolicy()): equal to K1 per instance; wall {wall:.3f} s against the "
+        f"plain per-chunk run {plain_wall:.3f} s and K1 {k1_wall:.4f} s; compaction block "
+        f"{json.dumps(comp)} (occupancy {comp['occupancy']}, wasted lane-rounds "
+        f"{comp['device_lane_rounds'] - comp['useful_lane_rounds']} of "
+        f"{comp['device_lane_rounds']}, {comp['segments']} segments incl. the drain, "
+        f"{comp['refills']} refills); {card}")
+    return {"wall_s": wall, "plain_wall_s": plain_wall, "k1_wall_s": k1_wall,
+            "compaction": comp}
+
+
+def lanes_park_phase(card):
+    """Phase 13d: park config4 at the first boundary after a refill,
+    round-trip the records through JSON and resume in a fresh grid."""
+    from byzantinerandomizedconsensus_tpu_torch import preset
+    from byzantinerandomizedconsensus_tpu_torch.backends import batch, compaction, lanestate
+
+    c4 = preset("config4")
+    ids = np.arange(LANE_PARK_IDS, dtype=np.int64)
+    bucket = batch.ShapeBucket.of(c4)
+    # One round a segment, so the boundary after the first refill still
+    # holds undecided rows (config4 decides in one or two rounds).
+    policy = compaction.CompactionPolicy(width=LANE_PARK_WIDTH, segment=1)
+    be = get_plain_backend()
+    whole, _, _ = compaction.run_bucket(be, bucket, [c4], [ids], policy=policy)
+    ctl = lanestate.LaneControl()
+    first = {}
+
+    def park_after_refill(msg):
+        queued = int(msg.rsplit(", ", 1)[1].split()[0])
+        first.setdefault("queued", queued)
+        if queued < first["queued"] and not first.get("asked"):
+            first["asked"] = True
+            ctl.park()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    _, _, stats = compaction.run_bucket(be, bucket, [c4], [ids], policy=policy,
+                                        control=ctl, progress=park_after_refill)
+    park_wall = time.perf_counter() - t0
+    recs = ctl.parked
+    if not (stats["parked_exit"] and stats["refills"] >= 1 and recs
+            and recs[0].lane_count() > 0):
+        fail(f"the park did not land after a refill with live lanes: {stats}")
+    t0 = time.perf_counter()
+    wire = json.dumps([r.to_doc() for r in recs])
+    thawed = [lanestate.LaneRecord.from_doc(d) for d in json.loads(wire)]
+    codec_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed, _, rstats = compaction.run_bucket(be, bucket, [], [], policy=policy,
+                                               imports=thawed)
+    resume_wall = time.perf_counter() - t0
+    lanes_launched_nothing("the parked and resumed grids")
+    lane_results_equal(resumed[0], whole[0], "config4 parked and resumed")
+    say(f"[lanes] config4 ids 0-{LANE_PARK_IDS - 1}, width {LANE_PARK_WIDTH}, segment 1: "
+        f"parked by "
+        f"LaneControl after {stats['segments']} segments and {stats['refills']} refill(s) "
+        f"({recs[0].doc_summary()}), {len(wire)} bytes of JSON, resumed in a fresh grid "
+        f"({rstats['restored_lanes']} lanes restored): equal to the uninterrupted run; "
+        f"walls: park {park_wall:.3f} s, codec {codec_wall:.3f} s, resume "
+        f"{resume_wall:.3f} s; {card}")
+    return {"park_wall_s": park_wall, "codec_wall_s": codec_wall,
+            "resume_wall_s": resume_wall, "json_bytes": len(wire),
+            "restored_lanes": rstats["restored_lanes"]}
+
+
+def lanes_sweep_phase(card):
+    """Phase 13e: ``cli sweep --batched --kernel plain`` at config 5's full
+    size into an empty directory, every shard equal to
+    ``artifacts/sweep_urn2/``; without ``--kernel plain``, the refusal."""
+    import tempfile
+
+    ref_dir = ROOT / SWEEP_URN2_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "sweep"
+        try:
+            run_cli(["sweep", "--out", str(out), "--batched"])
+            fail("cli sweep --batched without --kernel plain ran")
+        except ValueError as e:
+            if "kernel='plain'" not in str(e) or list(out.glob("*.npz")):
+                fail(f"cli sweep --batched without --kernel plain: {e}")
+            refusal = str(e)
+        reset_launches()
+        rc, rec, wall = run_cli(["sweep", "--out", str(out), "--batched", "--kernel", "plain"])
+        lanes_launched_nothing("cli sweep --batched --kernel plain")
+        names = sorted(p.name for p in out.glob("*.npz"))
+        want = sorted(p.name for p in ref_dir.glob("*.npz"))
+        if rc != 0 or names != want or len(names) != 32:
+            fail(f"cli sweep --batched wrote {len(names)} shards, rc {rc}")
+        for name in names:
+            got, ref = np.load(out / name), np.load(ref_dir / name)
+            for key in ("inst_ids", "rounds", "decision"):
+                if not np.array_equal(got[key], ref[key]):
+                    fail(f"cli sweep --batched shard {name}: {key} differs from "
+                         f"{SWEEP_URN2_DIR}")
+    say(f"[lanes] cli sweep --batched --kernel plain, config 5 at full size: {len(names)} "
+        f"shards equal to {SWEEP_URN2_DIR} (0 kernel launches); wall {wall:.3f} s; "
+        f"without --kernel plain: ValueError ({refusal[:80]}...); {card}")
+    return {"wall_s": wall, "shards": len(names)}
+
+
+def lanes_phase(card):
+    """Phase 13: the lane runners. Returns the phase's summary."""
+    t0 = time.perf_counter()
+    out = {"strict": lanes_strict_phase(card), "fused": lanes_fused_phase(card),
+           "compacted": lanes_compacted_phase(card), "park": lanes_park_phase(card),
+           "sweep_batched": lanes_sweep_phase(card)}
+    out["phase_wall_s"] = time.perf_counter() - t0
+    say(f"[lanes] phase 13 took {out['phase_wall_s']:.1f} s")
+    say("[lanes] " + json.dumps({"lanes": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2323,6 +2632,9 @@ def main() -> int:
     # through the CLI.
     for kernel, entries in sweep_bitmatch_phase(card).items():
         by_name[kernel]["paths"] += entries
+
+    # Phase 13: the lane runners on the plain round driver.
+    lanes_phase(card)
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -58,5 +58,6 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
                    "utils.checkpoint", "utils.sweep", "utils.multiseed", "core.prf",
                    "core.network", "core.replica", "core.adversary", "core.faults",
                    "core.simulator", "backends.cpu", "backends.native_backend",
-                   "tools.acceptance"):
+                   "tools.acceptance", "obs.metrics", "obs.trace", "models.session",
+                   "backends.batch", "backends.compaction", "backends.lanestate"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]

@@ -163,9 +163,15 @@ def test_stale_shards_warn_and_fresh_ones_do_not(tmp_path):
     assert len(said) == 1 and "packing-version" in said[0]
 
 
-def test_batched_sweep_raises_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="batched lane runner"):
-        sweep.run_sweep(tmp_path, batched=True, device="cpu", progress=_quiet, **SMALL)
+def test_batched_sweep_raises_by_name(tmp_path, monkeypatch):
+    """The batched sweep runs the lane runner, which refuses a kernel other
+    than plain by name (as a card backend with no kernel named holds it)
+    and writes nothing."""
+    be = TorchBackend(kernel="plain", device="cpu")
+    be.kernel = "fused"
+    monkeypatch.setattr(sweep, "get_backend", lambda name, **options: be)
+    with pytest.raises(ValueError, match="kernel='fused'"):
+        sweep.run_sweep(tmp_path, batched=True, progress=_quiet, **SMALL)
     assert not tmp_path.joinpath("sweep").exists() and _files(tmp_path) == []
 
 
