@@ -153,6 +153,13 @@ class TorchBackend(SimulatorBackend):
         else:
             _build.load(_step.library(STEP_KERNELS[cfg.delivery][0], cfg))
 
+    def compile_probe(self) -> int:
+        """Kernel libraries loaded (built first where missing) in this
+        process so far (``ops/_build.py``): the serving path's direct leg
+        reads it, and after a warm-up pass over a config set it stays
+        flat."""
+        return _build.libraries_in_process()
+
     def run(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None) -> SimResult:
         cfg = cfg.validate()
         self.check_supported(cfg)

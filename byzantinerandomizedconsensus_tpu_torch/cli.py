@@ -10,7 +10,11 @@
 - ``bitmatch``: a backend against an arbiter (``cpu``, the object oracle, or
   ``native``, the C++ core), per instance on sampled ids;
 - ``product``: the five benchmark configurations as shipped, in one JSON;
-- ``trace``: where each configuration's time goes on the card.
+- ``trace``: where each configuration's time goes on the card;
+- ``serve``: the always-on consensus service over HTTP
+  (``serve/server.py``; its options pass through): one kernel run per
+  request on the card, or the compacted lane grid with ``--kernel plain``;
+  ``--wal DIR`` journals admissions and ``--recover DIR`` replays them.
 
 Everything runs on the card unless ``--device cpu`` is given.
 
@@ -36,6 +40,9 @@ Everything runs on the card unless ``--device cpu`` is given.
     python -m byzantinerandomizedconsensus_tpu_torch.cli product --out product.json
     python -m byzantinerandomizedconsensus_tpu_torch.cli trace \
         --configs config3 config5@1024 config5@512/keys
+    python -m byzantinerandomizedconsensus_tpu_torch.cli serve --port 8787 --wal wal_dir
+    python -m byzantinerandomizedconsensus_tpu_torch.cli serve --device cpu \
+        --policy width=8,segment=1
 """
 
 from __future__ import annotations
@@ -464,10 +471,23 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--out-dir", default=None,
                     help="keep the Chrome traces here (default: not kept)")
     tr.set_defaults(fn=cmd_trace)
+    sub.add_parser("serve", add_help=False,
+                   help="the always-on consensus service over HTTP "
+                        "(serve/server.py; every further option passes "
+                        "through, see serve --help): --backend, --device, "
+                        "--kernel fused|step|plain (plain: the compacted "
+                        "lane grid), --wal DIR, --recover DIR; the fleet "
+                        "options are refused by name")
     return ap
 
 
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        from byzantinerandomizedconsensus_tpu_torch.serve import server
+
+        return server.main(argv[1:])
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

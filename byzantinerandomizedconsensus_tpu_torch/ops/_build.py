@@ -111,6 +111,12 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
+def libraries_in_process() -> int:
+    """How many kernel libraries this process has loaded so far (each
+    built first where it was missing)."""
+    return load.cache_info().currsize
+
+
 @functools.lru_cache(maxsize=None)
 def load_host(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cpp`` with ``g++`` (host code only) and load it."""

@@ -144,7 +144,31 @@ Phases, in order; any failure exits nonzero and prints no result:
    uninterrupted run; ``cli sweep --batched --kernel plain`` at config 5's
    full size, its 32 shards equal to ``artifacts/sweep_urn2/``, and
    without ``--kernel plain`` the lane runner's refusal;
-14. a ``{"kernels": [...]}`` line, the card line, and last
+14. the consensus server (``serve/server.py``): (a) the direct leg,
+   ``ConsensusServer(get_backend("torch"), round_cap_ceiling=256)`` behind
+   ``serve_http`` on an ephemeral port, driven over HTTP (``POST /submit``,
+   ``POST /cancel``, ``GET /result/<id>``, ``POST /run``): config4 at
+   100,000 instances (K1), config4 under keys and config 5's n = 512 point
+   under keys (K2), config2 under urn (K1 ``urn_r1``),
+   ``committee_point(8192)`` (K1 ``committee_r0``), a 4-slot session of
+   config3, config3 with ``check_invariants`` (checked on the card) and
+   config1 cancelled while queued; every reply equal to
+   ``get_backend("torch").run`` per instance, config4 to the reference
+   histograms, the session to ``run_session``; K1 and K2 launched by the
+   server, no kernel library built after the warm-up; then a
+   ``kernel="step"`` server on config 5's n = 512 point under urn (K3);
+   (b) the lane leg (``kernel="plain"``, policy ``width=4096,segment=1``):
+   phase 13's strict bucket streamed through the live feed, then its
+   mixed-n set, twice (the second pass builds no lane program), 0 kernel
+   launches, each reply per instance equal to its per-config K1 run; a
+   preemption park and resume of config4 at 20,000 instances around a
+   deadline-urgent arrival; the same request's live lanes exported from one
+   server and imported into another; (c) ``cli serve --wal DIR`` in a
+   subprocess, SIGKILLed with four replies owed (config4 under keys first),
+   restarted with ``--recover DIR``: every ``GET /result/<original id>``
+   equal to the offline run; with per-request latency, queue wait and
+   service time, and the served throughput beside the offline walls;
+15. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2250,14 +2274,9 @@ def fused_lane_grid():
 def lanes_strict_phase(card):
     """Phase 13a: the strict bucket and the mixed-n set through run_batch."""
     from byzantinerandomizedconsensus_tpu_torch.backends import batch
-    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
 
     lanes = get_plain_backend()
-    strict = [SimConfig(**LANE_STRICT, f=5 + s, seed=s, crash_window=1 + s % 4).validate()
-              for s in range(16)]
-    mixed = [SimConfig(**{**LANE_STRICT, "n": n}, f=(n - 1) // 3, seed=s,
-                       crash_window=1 + s % 4).validate()
-             for s, n in zip(range(16), LANE_MIXED_NS * 4)]
+    strict, mixed = lane_strict_mixed()
     buckets = {batch.ShapeBucket.of(c) for c in strict + mixed}
     if len(buckets) != 1:
         fail(f"the strict and mixed-n sets span {len(buckets)} buckets")
@@ -2457,6 +2476,484 @@ def lanes_phase(card):
     return out
 
 
+# Phase 14: the consensus server on the card.
+SERVE_CEILING = 256
+SERVE_HTTP_TIMEOUT = 120.0
+SERVE_WAIT_S = 300.0
+SERVE_START_S = 180.0
+SERVE_LANE_POLICY = "width=4096,segment=1"
+SERVE_FAT_INSTANCES = 20_000
+
+
+def http_json(base, path, payload=None, method=None):
+    """``(status, JSON document)`` of one HTTP call, with a timeout."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_HTTP_TIMEOUT) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def poll_result(base, rid):
+    """``GET /result/<rid>`` until it stops answering 202."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while time.monotonic() < deadline:
+        code, doc = http_json(base, f"/result/{rid}")
+        if code != 202:
+            return code, doc
+        time.sleep(0.005)
+    fail(f"no result for {rid} within {SERVE_WAIT_S} s")
+
+
+def wait_answered(base, n):
+    """Poll the small ``GET /stats`` (not the replies) until ``n`` requests
+    are answered, so the client's JSON work does not contend with the
+    dispatcher for the interpreter while the requests are timed."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while time.monotonic() < deadline:
+        _, st = http_json(base, "/stats")
+        if st["replied"] + st["failed"] + st["cancelled"] >= n:
+            return
+        time.sleep(0.02)
+    fail(f"{n} requests not answered within {SERVE_WAIT_S} s")
+
+
+def offline_wall(backend, cfg, reps: int = 3):
+    """``(result, best wall of reps timed runs)`` of the offline run."""
+    runs = [backend.timed_run(cfg) for _ in range(reps)]
+    return runs[0], min(r.wall_s for r in runs)
+
+
+def http_front(srv):
+    """``serve_http`` over a started server on an ephemeral port."""
+    import threading
+
+    from byzantinerandomizedconsensus_tpu_torch.serve.server import serve_http
+
+    httpd = serve_http(srv, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, "http://%s:%s" % httpd.server_address[:2]
+
+
+def reply_equal(rec, res, label):
+    """A reply record per instance against a SimResult."""
+    if not (rec["inst_ids"] == [int(i) for i in res.inst_ids]
+            and rec["rounds"] == res.rounds.tolist()
+            and rec["decision"] == res.decision.tolist()):
+        bad = int((np.asarray(rec["rounds"]) != res.rounds).sum()
+                  + (np.asarray(rec["decision"]) != res.decision).sum())
+        fail(f"the served reply for {label} differs from the offline run: {bad} mismatches")
+
+
+def request_ms(req) -> dict:
+    """A served request's latency, queue wait and service time (ms)."""
+    return {"latency_ms": req.latency_s * 1e3,
+            "queue_ms": (req.t_dispatch - req.t_submit) * 1e3,
+            "service_ms": (req.t_reply - req.t_dispatch) * 1e3}
+
+
+def served_line(label, cfg, req, offline_wall):
+    t = request_ms(req)
+    say(f"[serve] {label}: {cfg.instances} instances, latency {t['latency_ms']:.3f} ms "
+        f"(queue {t['queue_ms']:.3f}, service {t['service_ms']:.3f}); served "
+        f"{cfg.instances / req.latency_s:.1f} instances/s against the offline run's wall "
+        f"{offline_wall * 1e3:.3f} ms ({cfg.instances / offline_wall:.1f} instances/s)")
+    return {"config": label, "instances": cfg.instances, **t,
+            "offline_wall_ms": offline_wall * 1e3}
+
+
+def serve_direct_configs():
+    """Phase 14a's requests: ``(label, config, envelope)``; config1 is the
+    request cancelled while queued (behind config4 under keys)."""
+    from byzantinerandomizedconsensus_tpu_torch.config import (
+        committee_point, preset, sweep_point)
+
+    c4, c3 = preset("config4"), preset("config3")
+    return [("config4", c4, {}),
+            ("config4 keys", dataclasses.replace(c4, delivery="keys").validate(), {}),
+            ("config1 (cancelled)", preset("config1"), {}),
+            ("config5@512 keys", dataclasses.replace(sweep_point(512),
+                                                     delivery="keys").validate(), {}),
+            ("config2 urn", dataclasses.replace(preset("config2"),
+                                                delivery="urn").validate(), {}),
+            ("committee_point(8192)", committee_point(8192), {}),
+            ("config3 session x4", c3, {"session_slots": 4})]
+
+
+def serve_direct_phase(card):
+    """Phase 14a: the direct leg over HTTP, K1 and K2 through
+    ``get_backend("torch")``, then K3 through ``kernel="step"``."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import sweep_point
+    from byzantinerandomizedconsensus_tpu_torch.models import session
+    from byzantinerandomizedconsensus_tpu_torch.serve.server import ConsensusServer
+
+    reqs = serve_direct_configs()
+    c3 = preset("config3")
+    srv = ConsensusServer(get_backend("torch"), round_cap_ceiling=SERVE_CEILING).start()
+    httpd, base = http_front(srv)
+    try:
+        if srv.leg != "direct" or srv.device.type != "cuda":
+            fail(f"get_backend('torch') served on the {srv.leg} leg on {srv.device}")
+        reset_launches()
+        t0 = time.perf_counter()
+        ids = []
+        for label, cfg, env in reqs:
+            code, doc = http_json(base, "/submit", {**dataclasses.asdict(cfg), **env})
+            if code != 200:
+                fail(f"POST /submit {label}: {code} {doc}")
+            ids.append(doc["id"])
+            if label.endswith("(cancelled)"):
+                code, ack = http_json(base, f"/cancel/{doc['id']}", {}, method="POST")
+                if code != 200 or ack.get("where") != "queued":
+                    fail(f"POST /cancel/{doc['id']}: {code} {ack}, not cancelled while queued")
+        wait_answered(base, len(ids))
+        wall = time.perf_counter() - t0
+        recs = [poll_result(base, rid) for rid in ids]
+        code, inv = http_json(base, "/run", {**dataclasses.asdict(c3), "check_invariants": True})
+        if code != 200:
+            fail(f"POST /run config3 check_invariants: {code} {inv}")
+        warm = srv.compile_count()
+        # the steady state, one request at a time: each alone on the server
+        again = [http_json(base, "/run", dataclasses.asdict(reqs[i][1])) for i in (0, 3, 4)]
+        steady = srv.compile_count() - warm
+        launches = read_launches()
+        handles = dict(httpd.requests)
+        say(f"[serve] direct leg stats: {json.dumps(srv.stats())}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.shutdown(timeout=SERVE_WAIT_S)
+    if launches["fused_round"] < 1 or launches["keys_step"] < 1 or launches["urn_step"]:
+        fail(f"the direct leg's launches {launches}: K1 and K2, not K3, expected")
+    if steady != 0:
+        fail(f"the direct leg built {steady} kernel libraries after the warm-up")
+    if any(code != 200 for code, _ in again):
+        fail(f"the second pass: {[code for code, _ in again]}")
+    if inv["invariants"]["violations"] or \
+            inv["invariants"]["checked_instances"] != c3.instances:
+        fail(f"config3's invariant block on the card: {inv['invariants']}")
+    rows, walls = [], {}
+    for (label, cfg, env), rid, (code, rec) in zip(reqs, ids, recs):
+        if label.endswith("(cancelled)"):
+            if code != 500 or rec.get("error") != "cancelled":
+                fail(f"the cancelled request answered {code} {rec}")
+            continue
+        if code != 200:
+            fail(f"GET /result/{rid} ({label}): {code} {rec}")
+        off, off_wall = offline_wall(get_backend("torch"), cfg)
+        reply_equal(rec, off, label)
+        if "session_slots" in env:
+            ref = session.run_session(get_backend("torch"), cfg, env["session_slots"])
+            blk = rec["session"]
+            if blk["decisions"] != [r.decision.tolist() for r in ref] or \
+                    blk["rounds"] != [r.rounds.tolist() for r in ref] or \
+                    blk["seeds"] != [int(r.config.seed) for r in ref]:
+                fail("the served config3 session differs from run_session")
+        rows.append(served_line(f"{label} (burst)", cfg, handles[rid], off_wall))
+        walls[label] = off_wall
+    dh = np.bincount(recs[0][1]["decision"], minlength=3).tolist()
+    rh = np.bincount(recs[0][1]["rounds"], minlength=257).tolist()
+    if dh != CONFIG4_DECISIONS or rh[:4] != CONFIG4_ROUNDS_HEAD or any(rh[4:]):
+        fail(f"config4 served: histograms {dh}, {rh[:6]} differ from the reference")
+    for (label, cfg, _), (code, rec) in zip((reqs[0], reqs[3], reqs[4]), again):
+        reply_equal(rec, get_backend("torch").run(cfg), "the second pass")
+        rows.append(served_line(f"{label} (alone)", cfg, handles[rec["request_id"]],
+                                walls[label]))
+    say(f"[serve] direct leg over HTTP on {srv.device}: {len(ids)} submits, 1 cancelled "
+        f"while queued, 1 POST /run with check_invariants ({c3.instances} instances, 0 "
+        f"violations, checked on {srv.device}); every reply equal to get_backend('torch')"
+        f".run per instance, config4 equal to the reference histograms, the session equal "
+        f"to run_session slot by slot; launches {launches}; kernel libraries built or "
+        f"loaded: {warm}, then {steady} new on the second pass; wall {wall:.3f} s; {card}")
+
+    k3_cfg = dataclasses.replace(sweep_point(512), delivery="urn").validate()
+    step = get_backend("torch", kernel="step")
+    srv = ConsensusServer(step, round_cap_ceiling=SERVE_CEILING).start()
+    httpd, base = http_front(srv)
+    try:
+        reset_launches()
+        # twice: the second is the steady state, as the direct leg's second pass
+        first = http_json(base, "/run", dataclasses.asdict(k3_cfg))
+        code, rec = http_json(base, "/run", dataclasses.asdict(k3_cfg))
+        k3_launches = read_launches()
+        k3_req = httpd.requests.get(rec.get("request_id"))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.shutdown(timeout=SERVE_WAIT_S)
+    if code != 200 or first[0] != 200 or first[1]["rounds"] != rec["rounds"] \
+            or k3_launches["urn_step"] < 2 or k3_launches["fused_round"] \
+            or k3_launches["keys_step"]:
+        fail(f"kernel='step' served config5@512 urn: {code}, launches {k3_launches}")
+    off, off_wall = offline_wall(get_backend("torch", kernel="step"), k3_cfg)
+    reply_equal(rec, off, "config5@512 urn (step)")
+    k3_row = served_line("config5@512 urn (kernel='step')", k3_cfg, k3_req, off_wall)
+    return {"rows": rows, "k3_row": k3_row, "launches": launches, "k3_launches": k3_launches,
+            "wall_s": wall}
+
+
+def lane_strict_mixed(seed0: int = 0):
+    """Phase 13's strict bucket and mixed-n set, seeds from ``seed0``."""
+    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+
+    strict = [SimConfig(**LANE_STRICT, f=5 + s, seed=seed0 + s,
+                        crash_window=1 + s % 4).validate() for s in range(16)]
+    mixed = [SimConfig(**{**LANE_STRICT, "n": n}, f=(n - 1) // 3, seed=seed0 + s,
+                       crash_window=1 + s % 4).validate()
+             for s, n in zip(range(16), LANE_MIXED_NS * 4)]
+    return strict, mixed
+
+
+def blocking_hook():
+    """A segment hook that holds the grid at its first boundary until
+    released, so lanes are provably live while the script acts."""
+    import threading
+
+    started, go = threading.Event(), threading.Event()
+
+    def hook(_msg):
+        if not started.is_set():
+            started.set()
+            if not go.wait(timeout=SERVE_WAIT_S):
+                fail("the held grid was never released")
+
+    return hook, started, go
+
+
+def serve_lanes_phase(card):
+    """Phase 14b: the lane leg (``kernel="plain"``) on the card: the strict
+    bucket streamed through the live feed, then the mixed-n set, twice;
+    a preemption park and resume; lanes exported from one server and
+    imported into another."""
+    import threading
+
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.backends.compaction import CompactionPolicy
+    from byzantinerandomizedconsensus_tpu_torch.backends.lanestate import LaneRecord
+    from byzantinerandomizedconsensus_tpu_torch.serve.server import ConsensusServer
+
+    policy = CompactionPolicy.parse(SERVE_LANE_POLICY)
+    passes = []
+    reset_launches()
+    with ConsensusServer(get_backend("torch", kernel="plain"), policy=policy,
+                         round_cap_ceiling=SERVE_CEILING) as srv:
+        if srv.leg != "lanes" or srv.device.type != "cuda":
+            fail(f"kernel='plain' served on the {srv.leg} leg on {srv.device}")
+        for seed0 in (0, 100):
+            strict, mixed = lane_strict_mixed(seed0)
+            t0 = time.perf_counter()
+            hs = [srv.submit(c) for c in strict + mixed]
+            recs = [h.wait(timeout=SERVE_WAIT_S) for h in hs]
+            torch.cuda.synchronize()
+            passes.append({"cfgs": strict + mixed, "handles": hs, "recs": recs,
+                           "wall_s": time.perf_counter() - t0,
+                           "compiles": srv.compile_count()})
+        cache = srv.stats()["compile_cache"]
+    lanes_launched_nothing("the lane leg's two passes")
+    if passes[1]["compiles"] != passes[0]["compiles"]:
+        fail(f"the lane leg built {passes[1]['compiles'] - passes[0]['compiles']} lane "
+             f"programs after the warm-up pass ({cache})")
+    for i, p in enumerate(passes):
+        k1, k1_wall, _ = per_config_k1(p["cfgs"])
+        for c, rec, ref in zip(p["cfgs"], p["recs"], k1):
+            reply_equal(rec, ref, f"lane pass {i + 1}, n={c.n} seed={c.seed}")
+        p["k1_wall_s"] = k1_wall
+        lat = [h.latency_s * 1e3 for h in p["handles"]]
+        queue = [(h.t_dispatch - h.t_submit) * 1e3 for h in p["handles"]]
+        n_inst = sum(c.instances for c in p["cfgs"])
+        say(f"[serve] lane leg pass {i + 1} ({'warm-up' if i == 0 else 'steady'}): 16 strict "
+            f"+ 16 mixed-n configs x {LANE_STRICT['instances']} instances streamed through "
+            f"the live feed, each equal per instance to its per-config K1 run; wall "
+            f"{p['wall_s']:.3f} s ({n_inst / p['wall_s']:.1f} instances/s) against 32 "
+            f"per-config K1 runs {k1_wall:.3f} s; latency p50 {np.median(lat):.1f} ms, max "
+            f"{max(lat):.1f} ms; queue wait p50 {np.median(queue):.1f} ms, max "
+            f"{max(queue):.1f} ms; lane programs built {p['compiles']}; {card}")
+
+    c4 = preset("config4")
+    fat = dataclasses.replace(c4, instances=SERVE_FAT_INSTANCES).validate()
+    urgent = lane_strict_mixed(200)[0][0]
+    hook, started, go = blocking_hook()
+    reset_launches()
+    with ConsensusServer(get_backend("torch", kernel="plain"), policy=policy,
+                         round_cap_ceiling=SERVE_CEILING, preempt=True,
+                         segment_hook=hook) as srv:
+        hf = srv.submit(fat)
+        if not started.wait(timeout=SERVE_WAIT_S):
+            fail("the fat request's grid never reached a segment boundary")
+        hu = srv.submit({**dataclasses.asdict(urgent), "deadline_ms": 50.0})
+        go.set()
+        rf, ru = hf.wait(timeout=SERVE_WAIT_S), hu.wait(timeout=SERVE_WAIT_S)
+        pre = srv.stats()["preempt"]
+    lanes_launched_nothing("the preempted lane grid")
+    if pre["parks"] != 1 or pre["resumes"] != 1 or pre["lanes_exported"] < 1 \
+            or not hu.t_reply < hf.t_reply:
+        fail(f"no park and resume around the urgent request: {pre}")
+    (k1_fat, k1_urgent), _, _ = per_config_k1([fat, urgent])
+    reply_equal(rf, k1_fat, "config4 (20,000 instances) parked and resumed")
+    reply_equal(ru, k1_urgent, "the deadline-urgent request")
+    say(f"[serve] preemption: config4 at {fat.instances} instances parked at a segment "
+        f"boundary by a deadline-urgent n=64 arrival ({pre}); the urgent request replied "
+        f"first (latency {hu.latency_s * 1e3:.1f} ms), the parked one resumed mid-round "
+        f"(latency {hf.latency_s * 1e3:.1f} ms); both equal to their K1 runs; {card}")
+
+    hook, started, go = blocking_hook()
+    out = {}
+    reset_launches()
+    with ConsensusServer(get_backend("torch", kernel="plain"), policy=policy,
+                         round_cap_ceiling=SERVE_CEILING, segment_hook=hook) as srv:
+        h = srv.submit(fat)
+        if not started.wait(timeout=SERVE_WAIT_S):
+            fail("the exported request's grid never reached a segment boundary")
+        t = threading.Thread(target=lambda: out.setdefault(
+            "recs", srv.export_lanes([h.id], timeout=SERVE_WAIT_S)))
+        t.start()
+        time.sleep(0.2)
+        go.set()
+        t.join(timeout=SERVE_WAIT_S)
+    recs = out.get("recs") or []
+    if len(recs) != 1 or recs[0].lane_count() < 1:
+        fail(f"export_lanes returned {[r.doc_summary() for r in recs]}")
+    wire = json.dumps(recs[0].to_doc())
+    if json.dumps(LaneRecord.from_doc(json.loads(wire)).to_doc()) != wire:
+        fail("the exported lane record does not round-trip through JSON")
+    with ConsensusServer(get_backend("torch", kernel="plain"), policy=policy,
+                         round_cap_ceiling=SERVE_CEILING) as other:
+        (h2,) = other.import_lanes([json.loads(wire)])
+        rec = h2.wait(timeout=SERVE_WAIT_S)
+    lanes_launched_nothing("the export and import")
+    reply_equal(rec, k1_fat, "config4 (20,000 instances) exported and imported")
+    say(f"[serve] export_lanes: config4 at {fat.instances} instances extracted with live "
+        f"lanes ({recs[0].doc_summary()}, {len(wire)} bytes of JSON), imported into a "
+        f"second server, reply equal to its K1 run; {card}")
+    return {"passes": [{k: v for k, v in p.items() if k in ("wall_s", "compiles", "k1_wall_s")}
+                       for p in passes], "preempt": pre}
+
+
+def serve_process(*args):
+    """``cli serve`` on the card in a subprocess: ``(process, base URL,
+    output lines)``, the output read on a thread."""
+    import os
+    import threading
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "byzantinerandomizedconsensus_tpu_torch.cli", "serve",
+         "--port", "0", "--round-cap-ceiling", str(SERVE_CEILING), *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "listening on http://" in line:
+                ready.set()
+        ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    if not ready.wait(SERVE_START_S) or proc.poll() is not None:
+        proc.kill()
+        proc.wait(timeout=60)
+        fail(f"cli serve {' '.join(args)} did not start: {lines[-20:]}")
+    base = re.search(r"listening on (http://\S+)", [x for x in lines if "listening" in x][0])
+    return proc, base.group(1), lines
+
+
+def stop_process(proc):
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)  # drain and exit
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def serve_crash_phase(card):
+    """Phase 14c: ``cli serve --wal DIR`` SIGKILLed with replies owed,
+    restarted with ``--recover DIR``; every owed reply fetched by its
+    original id, equal to the offline run."""
+    import tempfile
+
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.serve import wal
+
+    by_label = {label: cfg for label, cfg, _ in serve_direct_configs()}
+    cfgs = [(label, by_label[label]) for label in
+            ("config4 keys", "config3 session x4", "config2 urn", "config5@512 keys")]
+    cfgs[1] = ("config3", cfgs[1][1])
+    with tempfile.TemporaryDirectory() as tmp:
+        wal_dir = str(pathlib.Path(tmp) / "wal")
+        t0 = time.perf_counter()
+        proc, base, _ = serve_process("--wal", wal_dir)
+        start_s = time.perf_counter() - t0
+        try:
+            ids = []
+            for label, cfg in cfgs:
+                code, doc = http_json(base, "/submit", dataclasses.asdict(cfg))
+                if code != 200:
+                    fail(f"POST /submit {label} to cli serve: {code} {doc}")
+                ids.append(doc["id"])
+        finally:
+            proc.kill()
+            proc.wait(timeout=60)
+        owed = [e["id"] for e in wal.WriteAheadLog.plan_recovery(wal_dir)[0]]
+        if owed != ids:
+            fail(f"the SIGKILL left {owed} owed, not every submitted id {ids}")
+        t0 = time.perf_counter()
+        proc, base, lines = serve_process("--recover", wal_dir)
+        try:
+            recs = [poll_result(base, rid) for rid in ids]
+            recover_s = time.perf_counter() - t0
+        finally:
+            stop_process(proc)
+        if proc.returncode != 0:
+            fail(f"the recovered cli serve exited {proc.returncode}: {lines[-10:]}")
+        if wal.WriteAheadLog.plan_recovery(wal_dir)[0]:
+            fail("the recovered server left journal entries open")
+    for (label, cfg), rid, (code, rec) in zip(cfgs, ids, recs):
+        if code != 200 or rec.get("request_id") != rid:
+            fail(f"GET /result/{rid} ({label}) after --recover: {code} {rec}")
+        reply_equal(rec, get_backend("torch").run(cfg), f"{label} recovered")
+        say(f"[serve] {label} recovered as {rid}: latency {rec['latency_s'] * 1e3:.3f} ms "
+            f"from its re-admission (the server's own clock, in its own process)")
+    say(f"[serve] crash drill: cli serve --wal (up in {start_s:.1f} s), {len(ids)} submits "
+        f"({', '.join(label for label, _ in cfgs)}), SIGKILL with all {len(owed)} owed; "
+        f"cli serve --recover: every GET /result/<original id> equal to the offline run, "
+        f"{recover_s:.1f} s from restart to the last reply; {card}")
+    return {"start_s": start_s, "recover_s": recover_s, "owed": len(owed)}
+
+
+def serve_phase(card):
+    """Phase 14: the consensus server. Returns {kernel: [path entries]}."""
+    t0 = time.perf_counter()
+    direct = serve_direct_phase(card)
+    lanes = serve_lanes_phase(card)
+    crash = serve_crash_phase(card)
+    wall = time.perf_counter() - t0
+    say(f"[serve] phase 14 took {wall:.1f} s")
+    say("[serve] " + json.dumps({"serve": {"direct": direct, "lanes": lanes, "crash": crash,
+                                           "phase_wall_s": wall}}))
+    label = ("serve direct leg over HTTP (config4, config4 keys, config5@512 keys, "
+             "config2 urn, committee_point(8192), config3 session x4, config3 "
+             "check_invariants)")
+    return {"fused_round": [{"config": label, "launches": direct["launches"]["fused_round"],
+                             "max_abs_err": 0, "wall_s": direct["wall_s"]}],
+            "keys_step": [{"config": label, "launches": direct["launches"]["keys_step"],
+                           "max_abs_err": 0, "wall_s": direct["wall_s"]}],
+            "urn_step": [{"config": "serve direct leg, kernel='step' (config5@512 urn)",
+                          "launches": direct["k3_launches"]["urn_step"], "max_abs_err": 0,
+                          "latency_ms": direct["k3_row"]["latency_ms"]}]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2635,6 +3132,11 @@ def main() -> int:
 
     # Phase 13: the lane runners on the plain round driver.
     lanes_phase(card)
+
+    # Phase 14: the consensus server, its direct leg through K1, K2 and K3,
+    # its lane leg, and a crash and WAL recovery of cli serve.
+    for kernel, entries in serve_phase(card).items():
+        by_name[kernel]["paths"] += entries
 
     say(json.dumps({"kernels": kernels}))
     say(card)

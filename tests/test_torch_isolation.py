@@ -59,5 +59,6 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
                    "core.network", "core.replica", "core.adversary", "core.faults",
                    "core.simulator", "backends.cpu", "backends.native_backend",
                    "tools.acceptance", "obs.metrics", "obs.trace", "models.session",
-                   "backends.batch", "backends.compaction", "backends.lanestate"):
+                   "backends.batch", "backends.compaction", "backends.lanestate",
+                   "serve", "serve.admission", "serve.wal", "serve.server"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]
