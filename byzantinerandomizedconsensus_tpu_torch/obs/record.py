@@ -10,7 +10,8 @@ blocks, every versioned block with its required keys (``compile_cache``,
 reference's verdicts. ``env_fingerprint`` reports torch and CUDA where the
 reference reports JAX, and never initializes CUDA: the device fields appear
 only when the calling tool already brought the card up.
-:func:`programs_block` raises by name until ``obs/programs.py`` is ported.
+:func:`programs_block` builds the ``programs`` block from the census of the
+port's CUDA kernels (``obs/programs.py``).
 """
 
 from __future__ import annotations
@@ -218,12 +219,29 @@ def find_blocks(doc, block_key: str, required_keys) -> list:
 
 
 def programs_block(source=None) -> dict | None:
-    """The schema-v1.4 ``programs`` block waits for the port of
-    ``obs/programs.py`` (the compiled-program census): raises by name."""
-    raise NotImplementedError(
-        "programs_block needs obs/programs.py (the program census), which "
-        "the port does not have yet; validate_record still checks a "
-        "programs block's shape")
+    """The schema-v1.4 ``programs`` block: from the process-global census
+    (``source=None``, the common case after a ``BRC_PROGRAMS`` run), a
+    :class:`~byzantinerandomizedconsensus_tpu_torch.obs.programs.ProgramCensus`,
+    or a dict of census entries by key. None when the census is off or
+    empty: a record without the block stays a valid v1.x record. Never
+    raises."""
+    from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
+
+    try:
+        if source is None:
+            source = _programs.current()
+        if source is None:
+            return None
+        if hasattr(source, "block"):
+            return source.block()
+        if not isinstance(source, dict) or not source:
+            return None
+        census = _programs.ProgramCensus()
+        for entry in source.values():
+            census.record(entry)
+        return census.block()
+    except Exception:
+        return None
 
 
 #: The fields a schema-v1.5 ``serve`` block must carry (the open-loop

@@ -24,6 +24,7 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.models.adversaries import two_faced
 from byzantinerandomizedconsensus_tpu_torch.models.faults import (
     FaultsUnsupported, check_faults_supported)
+from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
 
 #: The kernels' adversary codes (csrc/keys_step.cuh): crash and byzantine
@@ -159,4 +160,30 @@ def launch(name: str, cfg, seed, inst_ids: torch.Tensor, rnd: int, step: int,
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if lib is None and _programs.enabled():
+        _census_launch(name, cfg, B, n_recv)
     return c0, c1
+
+
+def _census_launch(name: str, cfg, B: int, n_recv: int) -> None:
+    """Count one launch in the program census (obs/programs.py): the
+    instantiation (packing law, Ben-Or's equivocation) and the launch shape
+    the C entry picks. ``keys_step``: a CTA of 256 threads per 64 receivers
+    of an instance, dynamic shared memory ``smem_bytes`` of
+    ``csrc/keys_step_kernel.cuh``; ``urn_step``: a CTA per instance, a
+    thread per (layout-packed) replica rounded up to whole warps."""
+    lib = library(name, cfg)
+    pack = 1 if cfg.n <= 1024 else 2
+    tf = int(two_faced(cfg))
+    targs = () if lib == "urn_step" else (1, 0) if lib == "keys_step" else (pack, int(
+        cfg.n <= 1024 or tf))
+    label = f"{cfg.protocol},{cfg.adversary},v{pack}"
+    if name == "keys_step":
+        word = 4 if pack == 1 else 8
+        smem = 8 * (256 * word + (32 + cfg.n) * 4) + 4 * cfg.n * 2 + 2 * cfg.n
+        _programs.note_launch(lib, "keys_step_kernel", label, targs,
+                              (B * ((n_recv + 63) // 64),), (256,), smem)
+        return
+    r = 1 if pack == 1 else 4
+    _programs.note_launch(lib, f"{lib}_kernel", label, targs, (B,),
+                          (((cfg.n + r - 1) // r + 31) // 32 * 32,))

@@ -49,6 +49,7 @@ import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import adversaries, driver, faults
 from byzantinerandomizedconsensus_tpu_torch.models.committee import quorum_params
+from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
 from byzantinerandomizedconsensus_tpu_torch.ops import committee as committee_law
 
@@ -236,7 +237,28 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches += 1
+    if _programs.enabled():
+        _census_launch(cfg, name, B)
     return rounds, decision
+
+
+def _census_launch(cfg, name: str, B: int) -> None:
+    """Count one launch in the program census (obs/programs.py): the
+    instantiation (protocol, adversary, fault schedule; the wide kernel's
+    layout) and the launch shape its C entry picks (one CTA per instance;
+    blockDim the replicas per thread rounded up to whole warps, 1024 past
+    n = 4096)."""
+    codes = (_PROTOCOL_CODES[cfg.protocol], _ADVERSARY_CODES[cfg.adversary],
+             _FAULT_CODES[cfg.faults])
+    label = f"{cfg.protocol},{cfg.adversary},{cfg.faults}"
+    if name == "fused_round":
+        _programs.note_launch(name, "fused_round_kernel", label, codes, (B,),
+                              ((cfg.n + 31) // 32 * 32,))
+        return
+    r = layout(cfg)
+    threads = ((cfg.n + r - 1) // r + 31) // 32 * 32 if r else 1024
+    _programs.note_launch(name, "fused_round_wide_kernel", label,
+                          codes + (None, r), (B,), (threads,))
 
 
 def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):

@@ -69,6 +69,7 @@ from byzantinerandomizedconsensus_tpu_torch.backends import batch as _batch
 from byzantinerandomizedconsensus_tpu_torch.backends import compaction as _compaction
 from byzantinerandomizedconsensus_tpu_torch.backends import lanestate as _lanestate
 from byzantinerandomizedconsensus_tpu_torch.obs import metrics as _metrics
+from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
 from byzantinerandomizedconsensus_tpu_torch.obs import record as _record
 from byzantinerandomizedconsensus_tpu_torch.obs import trace as _trace
 from byzantinerandomizedconsensus_tpu_torch.serve import admission as _admission
@@ -862,7 +863,9 @@ class ConsensusServer:
                 slot_cfg = cfg
                 try:
                     for k in range(slots):
-                        result = self._backend.run(slot_cfg, inst_ids=ids)
+                        run = _programs.instrument(
+                            _programs.config_label(slot_cfg), self._backend.run)
+                        result = run(slot_cfg, inst_ids=ids)
                         if token is not None:
                             self._retire(token, result)
                         if k + 1 < slots:
@@ -1189,6 +1192,11 @@ class ConsensusServer:
 #: rejected 413 with the named ``body_too_large`` rejection metric before
 #: a byte of it is read.
 MAX_BODY_BYTES = 1 << 20
+#: A body refused 413 is still read and dropped, up to this many bytes and
+#: with this socket timeout, so the reply reaches a client that is still
+#: sending it (``serve_http``'s ``_discard_body``).
+MAX_DRAIN_BYTES = 64 * MAX_BODY_BYTES
+DRAIN_TIMEOUT_S = 5.0
 
 
 class _BodyTooLarge(Exception):
@@ -1244,6 +1252,23 @@ def serve_http(server: ConsensusServer, host: str = "127.0.0.1",
             raw = self.rfile.read(length) if length else b"{}"
             return json.loads(raw.decode() or "{}")
 
+        def _discard_body(self, length: int) -> None:
+            """Read and drop a refused body after its 413 went out. Closing
+            with the body unread resets the connection (TCP RST), and a
+            client still sending it gets a broken pipe in place of the
+            413; bodies past :data:`MAX_DRAIN_BYTES`, or a client that
+            stalls, are cut off."""
+            self.connection.settimeout(DRAIN_TIMEOUT_S)
+            left = min(length, MAX_DRAIN_BYTES)
+            try:
+                while left > 0:
+                    chunk = self.rfile.read(min(left, 1 << 16))
+                    if not chunk:
+                        return
+                    left -= len(chunk)
+            except OSError:
+                pass  # the client gave up or stalled: nothing to salvage
+
         def do_GET(self):  # noqa: N802 — stdlib handler name
             if self.path == "/healthz":
                 # per-worker liveness: 503 + the dead worker
@@ -1292,7 +1317,9 @@ def serve_http(server: ConsensusServer, host: str = "127.0.0.1",
                 req = server.submit(payload)
             except _BodyTooLarge as e:
                 _admission._reject("body_too_large")
-                return self._reply(413, {"error": str(e)})
+                self.close_connection = True
+                self._reply(413, {"error": str(e)}, {"Connection": "close"})
+                return self._discard_body(e.length)
             except (ValueError, TypeError, json.JSONDecodeError) as e:
                 return self._reply(400, {"error": str(e)})
             except (_compaction.WorkFeedOverflow,
@@ -1329,16 +1356,19 @@ def serve_http(server: ConsensusServer, host: str = "127.0.0.1",
     return httpd
 
 
-#: The fleet's options: ``cli serve`` refuses each by name until the fleet
-#: (``serve/worker.py``, ``fleet.py``, ``autoscale.py``) is ported.
+#: The fleet's options (serve/fleet.py, serve/autoscale.py).
 FLEET_FLAGS = ("--workers", "--max-workers", "--min-workers", "--max-respawns",
                "--migrate")
 
 
 def main(argv=None) -> int:
-    """``cli serve`` — run the HTTP service until interrupted. Exits 2 with
-    a message, serving nothing, when a fleet option is given or when no
-    CUDA device is available and ``--device cpu`` was not asked for."""
+    """``cli serve`` — run the HTTP service until interrupted: one
+    single-grid server, or with ``--workers N`` (N > 1) or ``--max-workers``
+    a fleet of worker processes (serve/fleet.py) behind the same front
+    door, with the autoscaler when ``--max-workers`` is given. Exits 2 with
+    a message, serving nothing, when no CUDA device is available and
+    ``--device cpu`` was not asked for (naming the fleet options given),
+    or on a fleet shape out of range."""
     import argparse
 
     from byzantinerandomizedconsensus_tpu_torch.backends.base import get_backend
@@ -1404,53 +1434,113 @@ def main(argv=None) -> int:
                          "snapshot/restore, backends/lanestate.py) and "
                          "resumes them after")
     fleet = ap.add_argument_group(
-        "fleet options", "refused by name: the fleet is not ported yet")
-    fleet.add_argument("--workers", type=int, default=1)
-    fleet.add_argument("--max-workers", type=int, default=0)
-    fleet.add_argument("--min-workers", type=int, default=0)
-    fleet.add_argument("--max-respawns", type=int, default=0)
-    fleet.add_argument("--migrate", action="store_true")
+        "fleet options", "N worker processes behind one front door "
+        "(serve/fleet.py): bucket-affinity routing, work stealing, worker "
+        "loss re-admitted under the same ids; on one card every worker "
+        "shares it")
+    fleet.add_argument("--workers", type=int, default=1,
+                       help="worker count: 1 runs the single-grid server, "
+                            ">1 the fleet")
+    fleet.add_argument("--max-workers", type=int, default=0,
+                       help=">0 enables the metrics-driven autoscaler "
+                            "(serve/autoscale.py) between --min-workers and "
+                            "this ceiling")
+    fleet.add_argument("--min-workers", type=int, default=0,
+                       help="autoscaler floor (default: --workers)")
+    fleet.add_argument("--max-respawns", type=int, default=0,
+                       help="budget for respawning crashed workers "
+                            "(exponential backoff; the named terminal state "
+                            "respawn_budget_exhausted when spent; 0: none)")
+    fleet.add_argument("--migrate", action="store_true",
+                       help="lane-level stealing: an idle worker imports "
+                            "serialized lanes from the busiest one (live "
+                            "lanes on --kernel plain; on fused and step, "
+                            "requests no run has started)")
     args = ap.parse_args(argv)
 
     given = [flag for flag, on in zip(FLEET_FLAGS, (
         args.workers != 1, args.max_workers != 0, args.min_workers != 0,
         args.max_respawns != 0, args.migrate)) if on]
-    if given:
-        print(f"cli serve: {', '.join(given)}: the fleet (serve/worker.py, "
-              "fleet.py, autoscale.py) is not ported yet (ROADMAP Queue 1 "
-              "item 6b); this server is the single-grid one", file=sys.stderr)
-        return 2
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
-        print("cli serve: no CUDA device is available; the server runs on "
-              "the card by default and does not fall back to the CPU — pass "
-              "--device cpu to serve from the CPU (kernel 'plain', the "
-              "lane grid)", file=sys.stderr)
+        what = (f"the fleet ({', '.join(given)}) runs its workers"
+                if given else "the server runs")
+        print(f"cli serve: no CUDA device is available; {what} on the card "
+              "by default and does not fall back to the CPU — pass --device "
+              "cpu to serve from the CPU (kernel 'plain', the lane grid)",
+              file=sys.stderr)
         return 2
-    try:
-        backend = get_backend(args.backend, **backend_options(
-            args.backend, args.device, args.kernel))
-    except (KeyError, RuntimeError, ValueError) as e:
-        print(f"cli serve: {e}", file=sys.stderr)
+    autoscale = args.max_workers > 0
+    n_workers = max(args.workers, args.min_workers, 1)
+    use_fleet = n_workers > 1 or autoscale
+    problems = []
+    if args.workers < 1:
+        problems.append(f"--workers {args.workers} (>= 1)")
+    if args.max_respawns < 0:
+        problems.append(f"--max-respawns {args.max_respawns} (>= 0)")
+    if autoscale and max(1, args.min_workers) > args.max_workers:
+        problems.append(f"--min-workers {args.min_workers} above "
+                        f"--max-workers {args.max_workers}")
+    if problems:
+        print(f"cli serve: out of range: {'; '.join(problems)}",
+              file=sys.stderr)
         return 2
+    backend = None
+    if not use_fleet:
+        try:
+            backend = get_backend(args.backend, **backend_options(
+                args.backend, args.device, args.kernel))
+        except (KeyError, RuntimeError, ValueError) as e:
+            print(f"cli serve: {e}", file=sys.stderr)
+            return 2
 
     wal_dir = args.recover or args.wal
     if args.trace_dir:
-        _trace.configure(out_dir=args.trace_dir, role="serve")
+        _trace.configure(out_dir=args.trace_dir,
+                         role="fleet-coord" if use_fleet else "serve")
     if args.metrics:
         _metrics.configure()
     else:
         _metrics.maybe_enable_from_env()
     policy = _compaction.CompactionPolicy.parse(args.policy)
-    server = ConsensusServer(backend, policy=policy,
+    if use_fleet:
+        # the parent only routes: it builds the kernel libraries and spawns
+        # the workers, each on its placed device, and never touches a card
+        from byzantinerandomizedconsensus_tpu_torch.serve.fleet import FleetServer
+
+        server = FleetServer(workers=n_workers, backend=args.backend,
+                             device=args.device, kernel=args.kernel,
+                             policy=policy,
                              round_cap_ceiling=args.round_cap_ceiling,
-                             feed_depth=args.feed_depth or None,
+                             trace_dir=args.trace_dir,
                              rotation_queue_depth=(
                                  args.rotation_queue_depth or None),
                              tenant_inflight_cap=args.tenant_cap or None,
-                             wal_dir=wal_dir, preempt=args.preempt)
+                             max_respawns=args.max_respawns,
+                             wal_dir=wal_dir, migrate=args.migrate)
+        try:
+            server.start()
+        except RuntimeError as e:
+            # a worker that did not come up (its card missing, say): named,
+            # and the workers already up are stopped
+            print(f"cli serve: {e}", file=sys.stderr)
+            return 2
+    else:
+        server = ConsensusServer(backend, policy=policy,
+                                 round_cap_ceiling=args.round_cap_ceiling,
+                                 feed_depth=args.feed_depth or None,
+                                 rotation_queue_depth=(
+                                     args.rotation_queue_depth or None),
+                                 tenant_inflight_cap=args.tenant_cap or None,
+                                 wal_dir=wal_dir, preempt=args.preempt)
     with server as srv:
         httpd = serve_http(srv, host=args.host, port=args.port)
+        scaler = None
+        if autoscale:
+            from byzantinerandomizedconsensus_tpu_torch.serve.autoscale import Autoscaler
+
+            scaler = Autoscaler(srv, min_workers=max(1, args.min_workers),
+                                max_workers=args.max_workers).start()
         if args.recover:
             # replay in the background while the HTTP plane answers 503s;
             # recovered handles register so /result/<original id> works,
@@ -1474,8 +1564,11 @@ def main(argv=None) -> int:
                              daemon=True).start()
             admitted.wait()
         host, port = httpd.server_address[:2]
+        where = (f"fleet of {n_workers} workers, {srv.leg} leg on "
+                 f"{args.device}" if use_fleet
+                 else f"{srv.leg} leg on {srv.device}")
         print(f"cli serve: listening on http://{host}:{port} "
-              f"({srv.leg} leg on {srv.device}, policy {policy.doc()}, cap "
+              f"({where}, policy {policy.doc()}, cap "
               f"ceiling {args.round_cap_ceiling})", flush=True)
         try:
             httpd.serve_forever()
@@ -1483,6 +1576,8 @@ def main(argv=None) -> int:
             print("cli serve: draining and shutting down", flush=True)
         finally:
             httpd.server_close()
+            if scaler is not None:
+                scaler.stop()
     return 0
 
 

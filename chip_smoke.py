@@ -168,12 +168,29 @@ Phases, in order; any failure exits nonzero and prints no result:
    restarted with ``--recover DIR``: every ``GET /result/<original id>``
    equal to the offline run; with per-request latency, queue wait and
    service time, and the served throughput beside the offline walls;
-15. a ``{"kernels": [...]}`` line, the card line, and last
+15. the serving fleet (``serve/fleet.py``): two worker processes on
+   ``cuda:0``, each a ``ConsensusServer`` on the direct leg, each with its
+   time to ready and CUDA memory; a warm-up of each worker, then phase 14's
+   burst through the fleet (K1 and K2; config1 cancelled while queued),
+   every reply equal to the offline run, config4 to the reference
+   histograms, no kernel library loaded after the warm-up, each request's
+   latency, queue wait and service time beside phase 14's one server; the
+   worker holding config4 under keys SIGKILLed mid-run, its requests back
+   from the survivor under their ids, equal, and a replacement within the
+   respawn budget; ``Autoscaler.tick`` on an injected clock, one ``up`` and
+   one ``down`` that retires a worker with none lost; each worker's kernel
+   census (registers, shared memory and launch shape per instantiation
+   launched, from the ptxas report); a ``kernel="step"`` fleet on config
+   5's n = 512 point under urn (K3); ``cli serve --workers 2`` over HTTP
+   (/run, /stats with the workers' legs and a parent that never brought
+   CUDA up, /healthz);
+16. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2933,7 +2950,8 @@ def serve_crash_phase(card):
 
 
 def serve_phase(card):
-    """Phase 14: the consensus server. Returns {kernel: [path entries]}."""
+    """Phase 14: the consensus server. Returns ``({kernel: [path entries]},
+    the direct leg's per-request rows)``."""
     t0 = time.perf_counter()
     direct = serve_direct_phase(card)
     lanes = serve_lanes_phase(card)
@@ -2951,7 +2969,371 @@ def serve_phase(card):
                            "max_abs_err": 0, "wall_s": direct["wall_s"]}],
             "urn_step": [{"config": "serve direct leg, kernel='step' (config5@512 urn)",
                           "launches": direct["k3_launches"]["urn_step"], "max_abs_err": 0,
-                          "latency_ms": direct["k3_row"]["latency_ms"]}]}
+                          "latency_ms": direct["k3_row"]["latency_ms"]}]}, direct["rows"]
+
+
+# Phase 15: the serving fleet on the card.
+FLEET_WORKERS = 2
+#: Instances of each warm-up request: the burst's configs at this size load
+#: the same kernel libraries in each worker, so the burst loads none.
+FLEET_WARM_INSTANCES = 8
+#: Seeds of the autoscaler's backlog: config 5's n = 512 point under keys.
+FLEET_SCALE_SEEDS = (1, 2, 3, 4)
+
+
+@contextlib.contextmanager
+def running_fleet(**kw):
+    """A started ``FleetServer`` for a ``with`` block: drained and shut down
+    after it; if the block fails, its worker processes are killed first, so
+    a failed check never waits on them."""
+    from byzantinerandomizedconsensus_tpu_torch.serve.fleet import FleetServer
+
+    fleet = FleetServer(**kw)
+    try:
+        fleet.start()
+        yield fleet
+    except BaseException:
+        for w in fleet._workers:
+            if w.proc.poll() is None:
+                w.proc.kill()
+        fleet.shutdown(drain=False, timeout=10.0)
+        raise
+    fleet.shutdown(drain=True, timeout=SERVE_WAIT_S)
+
+
+def fleet_rows(fleet) -> list:
+    """Each worker's live stats (``None`` for a dead one), by index."""
+    return [row.get("server") for row in fleet.stats(live=True)["per_worker"]]
+
+
+def fleet_request_ms(req) -> dict:
+    """A fleet request's latency, queue wait (in the parent and in its
+    worker) and service time (ms)."""
+    return {"latency_ms": req.latency_s * 1e3, "queue_ms": req.queue_s * 1e3,
+            "service_ms": req.service_s * 1e3}
+
+
+def wait_fleet(fleet, what, cond, timeout=SERVE_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"the fleet: {what} not within {timeout} s: {fleet.health()}")
+        time.sleep(0.05)
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def census_lines(label, rows, card):
+    """Print each live worker's census of launched kernel instantiations
+    (obs/programs.py), and fail where a launched instantiation's ptxas
+    report was not found in its library's build log."""
+    out = []
+    for st in rows:
+        if st is None:
+            continue
+        blk = st.get("programs") or {}
+        kernels = [e for e in blk.get("programs", []) if e["key"].startswith("kernel/")]
+        for e in kernels:
+            if not e.get("ptxas"):
+                fail(f"worker {st['worker']}: no ptxas report for {e['key']} "
+                     f"({e['fingerprint']})")
+            px = e["ptxas"]
+            say(f"[fleet] {label} census, worker {st['worker']}: {e['key']} "
+                f"({e['fingerprint']['symbol']}): {px['registers']} registers, "
+                f"{px['smem_bytes']} bytes static smem, spill {px['spill_stores']}/"
+                f"{px['spill_loads']} bytes, launch grid {e['launch']['grid']} block "
+                f"{e['launch']['block']} dynamic smem {e['launch']['dynamic_smem_bytes']}, "
+                f"{e['calls']} launches; {card}")
+            out.append({"worker": st["worker"], "key": e["key"],
+                        "registers": px["registers"], "smem_bytes": px["smem_bytes"],
+                        "launches": e["calls"], "launch": e["launch"]})
+        mem = st.get("cuda_memory") or {}
+        say(f"[fleet] {label} worker {st['worker']}: launches {st['launches']}, "
+            f"kernel libraries loaded {st['libraries_loaded']}, {len(kernels)} "
+            f"instantiations launched; CUDA memory allocated "
+            f"{mem.get('allocated_bytes')} bytes (peak {mem.get('max_allocated_bytes')}), "
+            f"reserved {mem.get('reserved_bytes')}, card used by all processes "
+            f"{mem.get('device_used_bytes')} of {mem.get('device_total_bytes')}; {card}")
+    return out
+
+
+def fleet_burst_phase(fleet, card, single_rows):
+    """Phase 15b: phase 14's direct-leg burst through the fleet after a
+    warm-up of each worker; every reply against the offline run."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.models import session
+
+    reqs = serve_direct_configs()
+    warm = [fleet.submit({**dataclasses.asdict(dataclasses.replace(
+                cfg, instances=FLEET_WARM_INSTANCES).validate()), **env}, pin_worker=w)
+            for w in range(FLEET_WORKERS) for _, cfg, env in reqs]
+    for h in warm:
+        h.wait(timeout=SERVE_WAIT_S)
+    before = fleet_rows(fleet)
+    t0 = time.perf_counter()
+    handles = {}
+    for label, cfg, env in reqs:
+        payload = {**dataclasses.asdict(cfg), **env}
+        if label.endswith("(cancelled)"):
+            # pinned behind config4 under keys, so it is still queued
+            keys_worker = next(w.idx for w in fleet._workers
+                               if handles["config4 keys"].id in w.inflight)
+            h = fleet.submit(payload, pin_worker=keys_worker)
+            ack = fleet.cancel(h.id)
+            if ack.get("where") != "queued":
+                fail(f"the fleet's cancel of {label}: {ack}, not queued")
+        else:
+            h = fleet.submit(payload)
+        handles[label] = h
+    for h in handles.values():
+        h.done.wait(SERVE_WAIT_S)
+    wall = time.perf_counter() - t0
+    after = fleet_rows(fleet)
+    lib_growth = [a["libraries_loaded"] - b["libraries_loaded"] for a, b in zip(after, before)]
+    if any(lib_growth):
+        fail(f"workers loaded {lib_growth} kernel libraries after their warm-up")
+    deltas = [launch_delta(a["launches"], b["launches"]) for a, b in zip(after, before)]
+    total = {k: sum(d[k] for d in deltas) for k in deltas[0]}
+    if total["fused_round"] < 1 or total["keys_step"] < 1 or total["urn_step"]:
+        fail(f"the fleet burst's launches {deltas}: K1 and K2, not K3, expected")
+    single = {r["config"].replace(" (burst)", ""): r for r in single_rows}
+    rows = []
+    for label, cfg, env in reqs:
+        h = handles[label]
+        if label.endswith("(cancelled)"):
+            if h.error != "cancelled" or h.record is not None:
+                fail(f"the cancelled request: {h.error} {h.record}")
+            continue
+        if h.error is not None:
+            fail(f"the fleet's {label}: {h.error}")
+        rec = h.record
+        off = get_backend("torch").run(cfg)
+        reply_equal(rec, off, f"{label} through the fleet")
+        if "session_slots" in env:
+            ref = session.run_session(get_backend("torch"), cfg, env["session_slots"])
+            if rec["session"]["decisions"] != [r.decision.tolist() for r in ref]:
+                fail("the fleet's config3 session differs from run_session")
+        t = fleet_request_ms(h)
+        one = single.get(label)
+        say(f"[fleet] {label}: {cfg.instances} instances, latency {t['latency_ms']:.3f} ms "
+            f"(queue {t['queue_ms']:.3f}, service {t['service_ms']:.3f})"
+            + (f"; one server in phase 14: latency {one['latency_ms']:.3f} ms (queue "
+               f"{one['queue_ms']:.3f}, service {one['service_ms']:.3f})" if one else "")
+            + f"; {card}")
+        rows.append({"config": label, "instances": cfg.instances, **t,
+                     "single_server": one})
+    dh = np.bincount(handles["config4"].record["decision"], minlength=3).tolist()
+    rh = np.bincount(handles["config4"].record["rounds"], minlength=257).tolist()
+    if dh != CONFIG4_DECISIONS or rh[:4] != CONFIG4_ROUNDS_HEAD or any(rh[4:]):
+        fail(f"config4 through the fleet: histograms {dh}, {rh[:6]} differ from the reference")
+    say(f"[fleet] burst: {len(reqs)} submits, 1 cancelled while queued, every reply equal to "
+        f"get_backend('torch').run per instance, config4 equal to the reference histograms; "
+        f"launches per worker {deltas}; kernel libraries loaded after warm-up: {lib_growth}; "
+        f"wall {wall:.3f} s; {card}")
+    return {"rows": rows, "launches": total, "per_worker_launches": deltas,
+            "library_growth": lib_growth, "wall_s": wall}
+
+
+def fleet_loss_phase(fleet, card):
+    """Phase 15c: SIGKILL the worker holding config4 under keys mid-run;
+    its requests come back from the survivor under their ids; the respawn
+    budget replaces it."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import sweep_point
+
+    by_label = {label: cfg for label, cfg, _ in serve_direct_configs()}
+    cfgs = [dataclasses.replace(by_label["config4 keys"], seed=7).validate(),
+            dataclasses.replace(sweep_point(512), delivery="keys", seed=7).validate()]
+    lost0 = fleet.stats(live=False)["lost_workers"]
+    first = fleet.submit(cfgs[0])
+    wait_fleet(fleet, "config4 keys in flight",
+               lambda: any(first.id in w.inflight for w in fleet._workers))
+    victim = next(w for w in fleet._workers if first.id in w.inflight)
+    second = fleet.submit(cfgs[1], pin_worker=victim.idx)
+    time.sleep(0.3)  # the K2 run is under way in the victim
+    t_kill = time.perf_counter()
+    victim.kill()
+    for h in (first, second):
+        if not h.done.wait(SERVE_WAIT_S) or h.error is not None:
+            fail(f"request {h.id} after the kill: {h.error}")
+    kill_to_reply = max(h.t_reply for h in (first, second)) - t_kill
+    for h, cfg in ((first, cfgs[0]), (second, cfgs[1])):
+        if h.record["request_id"] != h.id:
+            fail(f"a re-admitted reply carries {h.record['request_id']}, not {h.id}")
+        reply_equal(h.record, get_backend("torch").run(cfg), f"{h.id} after the kill")
+    wait_fleet(fleet, "the respawn", lambda: fleet.health()["ok"]
+               and fleet.stats(live=False)["respawns"]["used"] == 1)
+    respawn_s = time.perf_counter() - t_kill
+    st = fleet.stats(live=False)
+    if st["lost_workers"] != lost0 + 1 or st["readmitted"] < 2 or st["failed"]:
+        fail(f"after the kill: {st}")
+    say(f"[fleet] worker loss: worker {victim.idx} (pid {victim.pid}) SIGKILLed while its K2 "
+        f"run of config4 under keys was under way, 2 requests re-admitted to the survivor "
+        f"under their ids, both equal to the offline run; {kill_to_reply:.3f} s from the kill "
+        f"to the last reply; the replacement up and health green {respawn_s:.1f} s after "
+        f"the kill (respawns {st['respawns']}); {card}")
+    return {"kill_to_last_reply_s": kill_to_reply, "respawn_s": respawn_s,
+            "readmitted": st["readmitted"]}
+
+
+def fleet_scale_phase(fleet, card):
+    """Phase 15d: ``Autoscaler.tick`` on an injected clock: one ``up``
+    under a backlog, one ``down`` once it drains, retiring a worker with
+    no loss."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import sweep_point
+    from byzantinerandomizedconsensus_tpu_torch.serve.autoscale import Autoscaler
+
+    clock = [0.0]
+    scaler = Autoscaler(fleet, min_workers=FLEET_WORKERS, max_workers=FLEET_WORKERS + 1,
+                        up_per_worker=1.0, down_per_worker=0.5, up_ticks=1,
+                        down_ticks=1, cooldown_s=0.0, clock=lambda: clock[0])
+    st0 = fleet.stats(live=False)
+    cfgs = [dataclasses.replace(sweep_point(512), delivery="keys", seed=s).validate()
+            for s in FLEET_SCALE_SEEDS]
+    hs = [fleet.submit(c) for c in cfgs]
+    t0 = time.perf_counter()
+    up = scaler.tick()
+    up_s = time.perf_counter() - t0
+    for h in hs:
+        if not h.done.wait(SERVE_WAIT_S) or h.error is not None:
+            fail(f"the autoscaler's backlog: {h.id} {h.error}")
+    clock[0] = 1.0
+    down = scaler.tick()
+    wait_fleet(fleet, "the retirement", lambda: not fleet.health().get("retiring"))
+    st = fleet.stats(live=False)
+    if (up, down) != ("up", "down") or st["lost_workers"] != st0["lost_workers"] \
+            or st["retired_workers"] != st0["retired_workers"] + 1 \
+            or st["routable"] != FLEET_WORKERS or not fleet.health()["ok"]:
+        fail(f"the autoscaler: {up}, {down}; {st}; {fleet.health()}")
+    for h, c in zip(hs, cfgs):
+        reply_equal(h.record, get_backend("torch").run(c), f"backlog {c.seed}")
+    say(f"[fleet] autoscaler: tick 'up' under {len(cfgs)} outstanding on "
+        f"{st0['routable']} workers (a third spawned in {up_s:.1f} s), tick 'down' once "
+        f"drained (a worker retired through the shutdown handshake, none lost: "
+        f"lost_workers {st['lost_workers']}, retired_workers {st['retired_workers']}); "
+        f"every reply equal to the offline run; {scaler.stop()}; {card}")
+    return {"up_s": up_s, "decisions": [up, down]}
+
+
+def fleet_step_phase(card):
+    """Phase 15e: a ``kernel="step"`` fleet serves config 5's n = 512 point
+    under urn through K3."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.config import sweep_point
+
+    cfg = dataclasses.replace(sweep_point(512), delivery="urn").validate()
+    with running_fleet(workers=FLEET_WORKERS, mode="process", backend="torch",
+                       device="cuda:0", kernel="step",
+                       round_cap_ceiling=SERVE_CEILING) as fleet:
+        before = fleet_rows(fleet)
+        hs = []
+        for _ in range(2):  # the first warms its worker; the second is timed
+            hs.append(fleet.submit(cfg))
+            if not hs[-1].done.wait(SERVE_WAIT_S) or hs[-1].error is not None:
+                fail(f"kernel='step' fleet: {hs[-1].error}")
+        after = fleet_rows(fleet)
+        census = census_lines("kernel='step' fleet", after, card)
+    deltas = [launch_delta(a["launches"], b["launches"]) for a, b in zip(after, before)]
+    total = {k: sum(d[k] for d in deltas) for k in deltas[0]}
+    if total["urn_step"] < 2 or total["fused_round"] or total["keys_step"]:
+        fail(f"kernel='step' fleet served config5@512 urn with launches {deltas}")
+    off = get_backend("torch", kernel="step").run(cfg)
+    for h in hs:
+        reply_equal(h.record, off, "config5@512 urn (kernel='step' fleet)")
+    t = fleet_request_ms(hs[1])
+    say(f"[fleet] kernel='step' fleet: config5@512 urn twice, both equal to the offline step "
+        f"run; launches per worker {deltas}; the second (warm) request's latency "
+        f"{t['latency_ms']:.3f} ms "
+        f"(queue {t['queue_ms']:.3f}, service {t['service_ms']:.3f}); {card}")
+    return {"launches": total, "row": t, "census": census}
+
+
+def fleet_cli_phase(card):
+    """Phase 15f: ``cli serve --workers 2`` over HTTP: /run, /stats (two
+    workers and their legs, a parent that never brought CUDA up) and
+    /healthz; SIGINT drains it and it exits 0."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
+
+    c4 = preset("config4")
+    t0 = time.perf_counter()
+    proc, base, lines = serve_process("--workers", str(FLEET_WORKERS))
+    start_s = time.perf_counter() - t0
+    try:
+        code, rec = http_json(base, "/run", dataclasses.asdict(c4))
+        _, stats = http_json(base, "/stats")
+        health = http_json(base, "/healthz")
+    finally:
+        stop_process(proc)
+    if code != 200:
+        fail(f"cli serve --workers 2: POST /run config4: {code} {rec}")
+    reply_equal(rec, get_backend("torch").run(c4), "config4 through cli serve --workers 2")
+    legs = [(r["leg"], r["device"]) for r in stats["per_worker"]]
+    if stats["workers"] != FLEET_WORKERS or legs != [("direct", "cuda:0")] * FLEET_WORKERS \
+            or stats["parent_cuda_initialized"] is not False:
+        fail(f"cli serve --workers 2 /stats: workers {stats['workers']}, legs {legs}, parent "
+             f"CUDA initialized {stats['parent_cuda_initialized']}")
+    if health != (200, {"ok": True, "workers": FLEET_WORKERS, "alive": FLEET_WORKERS,
+                        "dead_workers": []}):
+        fail(f"cli serve --workers 2 /healthz: {health}")
+    if proc.returncode != 0:
+        fail(f"cli serve --workers 2 exited {proc.returncode}: {lines[-10:]}")
+    say(f"[fleet] cli serve --workers 2: up in {start_s:.1f} s, POST /run config4 equal to the "
+        f"offline run (latency in its worker {rec['latency_s'] * 1e3:.3f} ms), /stats: "
+        f"{stats['workers']} workers on legs {legs}, the parent never brought CUDA up; "
+        f"/healthz {health[1]}; SIGINT drained it, exit 0; {card}")
+    return {"start_s": start_s}
+
+
+def fleet_phase(card, single_rows):
+    """Phase 15: the fleet on the card. Returns {kernel: [path entries]}."""
+    import os
+
+    t_phase = time.perf_counter()
+    os.environ["BRC_PROGRAMS"] = "1"  # each worker's kernel census
+    try:
+        t0 = time.perf_counter()
+        with running_fleet(workers=FLEET_WORKERS, mode="process", backend="torch",
+                           device="cuda:0", round_cap_ceiling=SERVE_CEILING,
+                           max_respawns=1) as fleet:
+            spawn_s = time.perf_counter() - t0
+            rows = fleet_rows(fleet)
+            for w, st in zip(fleet._workers, rows):
+                if w.leg != "direct" or w.device != "cuda:0" or \
+                        not fleet.slot(w.idx)["shared"]:
+                    fail(f"worker {w.idx}: {w.leg} leg on {w.device}, {fleet.slot(w.idx)}")
+                say(f"[fleet] worker {w.idx} (pid {w.pid}) ready {w.ready_s:.2f} s after its "
+                    f"spawn, {w.leg} leg on {w.device} ({st['device_name']}, shared), CUDA "
+                    f"memory {st['cuda_memory']}; {card}")
+            burst = fleet_burst_phase(fleet, card, single_rows)
+            census = census_lines("burst", fleet_rows(fleet), card)
+            loss = fleet_loss_phase(fleet, card)
+            scale = fleet_scale_phase(fleet, card)
+        step = fleet_step_phase(card)
+    finally:
+        os.environ.pop("BRC_PROGRAMS", None)
+    cli = fleet_cli_phase(card)
+    wall = time.perf_counter() - t_phase
+    say(f"[fleet] phase 15 took {wall:.1f} s (fleet of {FLEET_WORKERS} up in {spawn_s:.1f} s)")
+    say("[fleet] " + json.dumps({"fleet": {
+        "spawn_s": spawn_s, "ready_s": [w.ready_s for w in fleet._workers[:FLEET_WORKERS]],
+        "burst": burst, "census": census, "loss": loss, "scale": scale, "step": step,
+        "cli": cli, "phase_wall_s": wall}}))
+    label = ("fleet of 2 workers on cuda:0, phase 14's direct-leg burst (config4, config4 "
+             "keys, config5@512 keys, config2 urn, committee_point(8192), config3 session x4)")
+    return {"fused_round": [{"config": label, "launches": burst["launches"]["fused_round"],
+                             "per_worker_launches": [d["fused_round"] for d in
+                                                     burst["per_worker_launches"]],
+                             "max_abs_err": 0, "wall_s": burst["wall_s"]}],
+            "keys_step": [{"config": label, "launches": burst["launches"]["keys_step"],
+                           "per_worker_launches": [d["keys_step"] for d in
+                                                   burst["per_worker_launches"]],
+                           "max_abs_err": 0, "wall_s": burst["wall_s"]}],
+            "urn_step": [{"config": "fleet of 2 workers, kernel='step' (config5@512 urn x2)",
+                          "launches": step["launches"]["urn_step"], "max_abs_err": 0,
+                          "latency_ms": step["row"]["latency_ms"]}]}
 
 
 def main() -> int:
@@ -3135,7 +3517,14 @@ def main() -> int:
 
     # Phase 14: the consensus server, its direct leg through K1, K2 and K3,
     # its lane leg, and a crash and WAL recovery of cli serve.
-    for kernel, entries in serve_phase(card).items():
+    serve_paths, single_rows = serve_phase(card)
+    for kernel, entries in serve_paths.items():
+        by_name[kernel]["paths"] += entries
+
+    # Phase 15: the serving fleet, worker processes on the card through K1,
+    # K2 and K3: routing, a worker lost and replaced, the autoscaler, cli
+    # serve --workers 2, and each worker's kernel census.
+    for kernel, entries in fleet_phase(card, single_rows).items():
         by_name[kernel]["paths"] += entries
 
     say(json.dumps({"kernels": kernels}))

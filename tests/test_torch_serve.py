@@ -743,8 +743,28 @@ def test_record_block_keys_and_builders_equal_the_reference():
 
 
 def test_programs_block_refuses_by_name():
-    with pytest.raises(NotImplementedError, match="obs/programs.py"):
-        record.programs_block()
+    """``programs_block`` no longer raises: the census of the port's
+    kernels (obs/programs.py) is ported. With the census off or empty it
+    refuses to build a block (None, a record without it stays valid); with
+    entries it builds one that both packages' ``validate_record`` accept."""
+    from byzantinerandomizedconsensus_tpu_torch.obs import programs
+
+    programs.disable()
+    try:
+        assert record.programs_block() is None
+        census = programs.configure()
+        assert record.programs_block() is None
+        cfg = _CFGS[0]
+        out, fn, entry = programs.capture_call(
+            programs.config_label(cfg), _be().run, (cfg,), {})
+        blk = record.programs_block()
+    finally:
+        programs.disable()
+    assert entry["calls"] == 1 and entry["kernels"] == {} and fn is not None
+    assert blk["count"] == 1 and blk["programs"][0]["key"].startswith("config/benor/n5/")
+    doc = {**record.new_record("programs_census"), "programs": blk}
+    assert record.validate_record(doc) == [] == ref_record.validate_record(doc)
+    assert record.programs_block(census) == blk
 
 
 def test_validate_record_flags_bad_blocks_as_the_reference():
