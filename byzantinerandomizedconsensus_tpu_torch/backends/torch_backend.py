@@ -18,8 +18,9 @@ The device is CUDA unless the caller asks for the CPU; with no card present
 and the CPU not asked for, construction raises. The CPU runs ``"plain"``
 only. With no kernel named, CUDA picks ``"fused"`` for every law of its
 surface (urn among them) and ``"step"`` for keys; the per-step kernels have
-no §9 fault channel, so a fault config under keys raises by name and runs
-on ``"plain"`` (under urn it runs on ``"fused"``).
+no §9 fault channel, so a fault config under keys takes ``"plain"``, the
+one path that computes it (under urn it runs on ``"fused"``). Named
+explicitly, ``kernel="step"`` refuses such a config by name.
 """
 
 from __future__ import annotations
@@ -120,10 +121,13 @@ class TorchBackend(SimulatorBackend):
 
     def kernel_for(self, cfg: SimConfig) -> str:
         """The kernel a run of ``cfg`` takes: the one asked for, else
-        ``"fused"`` for the laws of its surface and ``"step"`` for keys."""
+        ``"fused"`` for the laws of its surface, ``"step"`` for keys, and
+        ``"plain"`` for keys under a §9 schedule (no kernel has both)."""
         if self.kernel is not None:
             return self.kernel
-        return "fused" if cfg.delivery in fused_round.SUPPORTED["delivery"] else "step"
+        if cfg.delivery in fused_round.SUPPORTED["delivery"]:
+            return "fused"
+        return "step" if cfg.faults == "none" else "plain"
 
     def check_supported(self, cfg: SimConfig) -> None:
         """Raise :class:`~ops.fused_round.FusedUnsupported`,

@@ -14,7 +14,12 @@
 - ``serve``: the always-on consensus service over HTTP
   (``serve/server.py``; its options pass through): one kernel run per
   request on the card, or the compacted lane grid with ``--kernel plain``;
-  ``--wal DIR`` journals admissions and ``--recover DIR`` replays them.
+  ``--wal DIR`` journals admissions and ``--recover DIR`` replays them;
+- ``loadgen``: the seeded open-loop load generator over the server or a
+  fleet (``tools/loadgen.py``; its options pass through), and with
+  ``--scenario NAME`` the hostile and elastic drills (``tools/hostile.py``);
+- ``chaos``: the randomized differential soak in chaos mode
+  (``tools/soak.py --chaos``; its options pass through).
 
 Everything runs on the card unless ``--device cpu`` is given.
 
@@ -43,6 +48,10 @@ Everything runs on the card unless ``--device cpu`` is given.
     python -m byzantinerandomizedconsensus_tpu_torch.cli serve --port 8787 --wal wal_dir
     python -m byzantinerandomizedconsensus_tpu_torch.cli serve --device cpu \
         --policy width=8,segment=1
+    python -m byzantinerandomizedconsensus_tpu_torch.cli run --preset config3 --profile prof
+    python -m byzantinerandomizedconsensus_tpu_torch.cli loadgen
+    python -m byzantinerandomizedconsensus_tpu_torch.cli loadgen --scenario all
+    python -m byzantinerandomizedconsensus_tpu_torch.cli chaos --configs 16 --jobs 4
 """
 
 from __future__ import annotations
@@ -158,6 +167,13 @@ def _config_from(args, base=None) -> SimConfig:
 
 
 def cmd_run(args) -> int:
+    from byzantinerandomizedconsensus_tpu_torch.utils import profiling
+
+    with profiling.trace(args.profile):
+        return _run(args)
+
+
+def _run(args) -> int:
     if args.sweep_point is not None:
         base = sweep_point(args.sweep_point)
     elif args.committee_point is not None:
@@ -414,6 +430,10 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--total-instances", type=_positive_int, default=None,
                      help="run this many instances across derived seeds "
                           "(utils/multiseed.py), past the per-seed ceiling of spec §2")
+    run.add_argument("--profile", default=None, metavar="DIR",
+                     help="write a torch.profiler Chrome trace of the run to DIR "
+                          "(Perfetto); the plain round bodies' spans (brc/bracha/"
+                          "echo, brc/urn2, brc/coin, ...) label its timeline")
     run.set_defaults(fn=cmd_run)
     bm = sub.add_parser("bitmatch", help="a backend against an arbiter, per instance "
                         "on sampled ids")
@@ -471,6 +491,16 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--out-dir", default=None,
                     help="keep the Chrome traces here (default: not kept)")
     tr.set_defaults(fn=cmd_trace)
+    sub.add_parser("loadgen", add_help=False,
+                   help="the seeded open-loop load generator over the server "
+                        "or a fleet (tools/loadgen.py; every further option "
+                        "passes through, see loadgen --help): --device, "
+                        "--kernel, --workers 1,2, --smoke; --scenario NAME "
+                        "runs the hostile and elastic drills (tools/hostile.py)")
+    sub.add_parser("chaos", add_help=False,
+                   help="the randomized differential soak in chaos mode "
+                        "(tools/soak.py --chaos; every further option passes "
+                        "through): --configs, --jobs, --liveness, --device")
     sub.add_parser("serve", add_help=False,
                    help="the always-on consensus service over HTTP "
                         "(serve/server.py; every further option passes "
@@ -484,10 +514,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    # the tools with options of their own, dispatched before argparse
     if argv and argv[0] == "serve":
         from byzantinerandomizedconsensus_tpu_torch.serve import server
 
         return server.main(argv[1:])
+    if argv and argv[0] == "loadgen":
+        from byzantinerandomizedconsensus_tpu_torch.tools import loadgen
+
+        return loadgen.main(argv[1:])
+    if argv and argv[0] == "chaos":
+        from byzantinerandomizedconsensus_tpu_torch.tools import soak
+
+        return soak.main(["--chaos", *argv[1:]])
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -18,6 +18,7 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 from byzantinerandomizedconsensus_tpu_torch.ops.prf import rows
+from byzantinerandomizedconsensus_tpu_torch.utils import profiling
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
@@ -67,21 +68,24 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
                       for v in (1, 0, 2))
 
     # Step 0 — report: broadcast est.
-    h0 = gather(est)
-    v0, s0, b0 = inject(0, h0)
-    r0, r1 = counts(0, h0, v0, s0, b0)
-    prop = torch.where(2 * r1 > quorum_rhs, one,
-                       torch.where(2 * r0 > quorum_rhs, zero, bot))
+    with profiling.annotate("brc/benor/report"):
+        h0 = gather(est)
+        v0, s0, b0 = inject(0, h0)
+        r0, r1 = counts(0, h0, v0, s0, b0)
+        prop = torch.where(2 * r1 > quorum_rhs, one,
+                           torch.where(2 * r0 > quorum_rhs, zero, bot))
 
     # Step 1 — propose: broadcast prop (bot = 2 is not counted).
-    h1 = gather(prop)
-    v1, s1, b1 = inject(1, h1)
-    upd = ~decided
-    p0, p1 = counts(1, h1, v1, s1, b1, need=upd)
-    w = (p1 >= p0).to(torch.uint8)
-    c = torch.where(w == 1, p1, p0)
+    with profiling.annotate("brc/benor/propose"):
+        h1 = gather(prop)
+        v1, s1, b1 = inject(1, h1)
+        upd = ~decided
+        p0, p1 = counts(1, h1, v1, s1, b1, need=upd)
+        w = (p1 >= p0).to(torch.uint8)
+        c = torch.where(w == 1, p1, p0)
 
-    coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
+    with profiling.annotate("brc/coin"):
+        coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
     adopt = c >= adopt_min
     new_est = torch.where(adopt, w, coin)
     n2, f2 = rows(n, 2), rows(f, 2)

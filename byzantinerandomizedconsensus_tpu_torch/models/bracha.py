@@ -13,6 +13,7 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.models import coins, committee, faults, validation
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import make_counts
 from byzantinerandomizedconsensus_tpu_torch.ops.prf import rows
+from byzantinerandomizedconsensus_tpu_torch.utils import profiling
 
 
 def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
@@ -69,34 +70,38 @@ def round_body(cfg, seed, inst_ids, rnd: int, state: dict, adv, setup,
         return v, (s if msil is None else s | msil), b
 
     # Step 0 — broadcast est; majority of delivered (ties -> 1).
-    h0 = gather(est)
-    v0, s0, b0 = inject(0, h0)
-    g0_0, g0_1 = validation.live_counts(v0, s0)
-    c0_0, c0_1 = counts(0, h0, v0, s0, b0)
-    m = (c0_1 >= c0_0).to(torch.uint8)
+    with profiling.annotate("brc/bracha/initial"):
+        h0 = gather(est)
+        v0, s0, b0 = inject(0, h0)
+        g0_0, g0_1 = validation.live_counts(v0, s0)
+        c0_0, c0_1 = counts(0, h0, v0, s0, b0)
+        m = (c0_1 >= c0_0).to(torch.uint8)
 
     # Step 1 — broadcast m; invalid messages silenced before delivery
     # (spec §5.1b); a decide-proposal needs an absolute > n/2 quorum.
-    h1 = gather(m)
-    v1, s1, b1 = inject(1, h1)
-    s1 = s1 | validation.validate_step1(cfg, v1, g0_0, g0_1, nf=(n, f))
-    g1_0, g1_1 = validation.live_counts(v1, s1)
-    c1_0, c1_1 = counts(1, h1, v1, s1, b1)
-    one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
-                      for v in (1, 0, 2))
-    n2, f2 = rows(n, 2), rows(f, 2)  # (B, 1) under the lane runner
-    d = torch.where(2 * c1_1 > n2, one, torch.where(2 * c1_0 > n2, zero, bot))
+    with profiling.annotate("brc/bracha/echo"):
+        h1 = gather(m)
+        v1, s1, b1 = inject(1, h1)
+        s1 = s1 | validation.validate_step1(cfg, v1, g0_0, g0_1, nf=(n, f))
+        g1_0, g1_1 = validation.live_counts(v1, s1)
+        c1_0, c1_1 = counts(1, h1, v1, s1, b1)
+        one, zero, bot = (torch.tensor(v, dtype=torch.uint8, device=est.device)
+                          for v in (1, 0, 2))
+        n2, f2 = rows(n, 2), rows(f, 2)  # (B, 1) under the lane runner
+        d = torch.where(2 * c1_1 > n2, one, torch.where(2 * c1_0 > n2, zero, bot))
 
     # Step 2 — broadcast d (bot = 2 is not counted); validated against G1.
-    h2 = gather(d)
-    v2, s2, b2 = inject(2, h2)
-    s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1, nf=(n, f))
-    upd = ~decided
-    c2_0, c2_1 = counts(2, h2, v2, s2, b2, need=upd)
-    w = (c2_1 >= c2_0).to(torch.uint8)
-    c = torch.where(w == 1, c2_1, c2_0)
+    with profiling.annotate("brc/bracha/ready"):
+        h2 = gather(d)
+        v2, s2, b2 = inject(2, h2)
+        s2 = s2 | validation.validate_step2(cfg, v2, g1_0, g1_1, nf=(n, f))
+        upd = ~decided
+        c2_0, c2_1 = counts(2, h2, v2, s2, b2, need=upd)
+        w = (c2_1 >= c2_0).to(torch.uint8)
+        c = torch.where(w == 1, c2_1, c2_0)
 
-    coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
+    with profiling.annotate("brc/coin"):
+        coin = coins.coin_bits(cfg, seed, inst_ids, rnd, recv_ids)
     decide_now = c >= 2 * f2 + 1
     adopt = c >= f2 + 1
     new_est = torch.where(adopt, w, coin)

@@ -18,6 +18,7 @@ from byzantinerandomizedconsensus_tpu_torch.models.faults import check_faults_su
 from byzantinerandomizedconsensus_tpu_torch.obs.counters import (
     CountersUnsupported, real_receivers, step_stats)
 from byzantinerandomizedconsensus_tpu_torch.ops import committee, keys_step, urn, urn2, urn3
+from byzantinerandomizedconsensus_tpu_torch.utils import profiling
 
 _COUNTS_FNS = {"urn": urn.counts_fn, "urn2": urn2.counts_fn, "urn3": urn3.counts_fn,
                "committee": committee.counts_fn}
@@ -70,14 +71,15 @@ def make_counts(cfg, seed, inst_ids, rnd, setup, counts_fn=None, stats=None,
         if counts_fn is not None:
             return counts_fn(cfg, seed, inst_ids, rnd, t, values, silent,
                              setup["faulty"], honest, **shard)
-        if cfg.count_level:
-            return _COUNTS_FNS[cfg.delivery](cfg, seed, inst_ids, rnd, t, values,
-                                             silent, setup["faulty"], honest,
-                                             stats=law_stats, stats_lanes=need,
-                                             fside=fside, recv_ids=recv_ids)
-        return keys_step.step_counts_plain(cfg, seed, inst_ids, rnd, t, values,
-                                           silent, setup["faulty"], bias,
-                                           fside=fside, recv_ids=recv_ids)
+        with profiling.annotate(f"brc/{cfg.delivery}"):
+            if cfg.count_level:
+                return _COUNTS_FNS[cfg.delivery](cfg, seed, inst_ids, rnd, t, values,
+                                                 silent, setup["faulty"], honest,
+                                                 stats=law_stats, stats_lanes=need,
+                                                 fside=fside, recv_ids=recv_ids)
+            return keys_step.step_counts_plain(cfg, seed, inst_ids, rnd, t, values,
+                                               silent, setup["faulty"], bias,
+                                               fside=fside, recv_ids=recv_ids)
 
     def counts(t, honest, values, silent, bias, need=None):
         if obs is None:

@@ -1145,6 +1145,9 @@ class ConsensusServer:
                 }],
             }
         out["compile_cache"] = _batch.compile_cache(self._backend).stats()
+        # the leg's own build counter (compile_count): kernel libraries on
+        # the direct leg, lane-program builds on the lane leg
+        out["compile_count"] = self.compile_count()
         return out
 
     def health(self) -> dict:

@@ -8,6 +8,7 @@ and such instances sit in the ``rounds == round_cap`` bin.
 
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
@@ -68,10 +69,18 @@ def wasted_lane_fraction(rounds: np.ndarray, chunk: int) -> float | None:
     return float(round(1.0 - int(rounds.sum()) / device, 6))
 
 
-def summary(res: SimResult, chunk=None) -> dict:
+def summary(res: SimResult, walls=None, device=None, chunk=None) -> dict:
     """The reference's run summary: did it decide (``decided_fraction``),
-    in how many rounds, and how fast on the clock. ``chunk``, the backend's
-    instances per call, adds the straggler metrics."""
+    in how many rounds, and how fast on the clock.
+
+    ``walls``, the timed-run list of ``utils/timing.timed_best_of``, adds
+    the best wall, the full ``walls_s`` and their spread, and recomputes
+    ``instances_per_sec`` from the unrounded best. ``device``, the
+    ``utils/timing.device_busy`` dict, adds ``device_busy_s`` or its
+    ``device_busy_error`` (an absence of signal is an error, never a 0.0
+    measurement). Both through ``obs/record.timing_block``, the one shape.
+    ``chunk``, the backend's instances per call, adds the straggler
+    metrics."""
     cfg = res.config
     decided = res.decision != 2
     dh = decision_histogram(res)
@@ -97,4 +106,14 @@ def summary(res: SimResult, chunk=None) -> dict:
         out["chunk"] = int(chunk)
         out["wasted_lane_fraction"] = wasted_lane_fraction(res.rounds, chunk)
         out["mean_max_rounds_per_chunk"] = mean_max_rounds_per_chunk(res.rounds, chunk)
+    if walls is not None or device is not None:
+        from byzantinerandomizedconsensus_tpu_torch.obs import record
+
+        out.update(record.timing_block(walls or [res.wall_s], device))
+        if walls:
+            out["instances_per_sec"] = round(n_inst / min(walls), 1)
     return out
+
+
+def dump_summary(res: SimResult) -> str:
+    return json.dumps(summary(res))

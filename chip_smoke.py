@@ -56,8 +56,9 @@ Phases, in order; any failure exits nonzero and prints no result:
 8. the §9 fault schedules (recover, partition, omission) through
    ``fused_round``: the kernel against its plain version on a grid (both
    protocols, every static adversary, n in 13..1024, both coins, capped
-   instances); the divergence tool's fault grid (four configs at 400
-   instances under each kind and without one, through
+   instances); the port's divergence tool's fault grid
+   (``tools/divergence.py::fault_row`` over its ``FAULT_GRID``: four
+   configs at 400 instances under each kind and without one, through
    ``get_backend("torch")``) against the ``fault_rows`` of
    ``artifacts/divergence_r23.json``; and config4 under each kind at
    100,000 instances through ``get_backend("torch")``, instances 0-1999
@@ -184,7 +185,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    5's n = 512 point under urn (K3); ``cli serve --workers 2`` over HTTP
    (/run, /stats with the workers' legs and a parent that never brought
    CUDA up, /healthz);
-16. a ``{"kernels": [...]}`` line, the card line, and last
+16. the load drivers (``tools/loadgen.py``, ``tools/hostile.py``,
+   ``tools/soak.py``) through the entry points a user calls: (a) the
+   stream digest of seed 15 against ``artifacts/serve_fleet_migrate_r23.json``;
+   (b) ``cli loadgen --device cuda`` at the reference's defaults (seed 14,
+   200 requests, rate 4/s) on the direct leg, K1 and K2 counted (per
+   library from the kernel census), 0 steady-state builds, every reply and
+   session replay equal to the plain driver; (c) its first 24 requests on
+   the lane leg (``--kernel plain``, 0 launches), each reply equal to
+   (b)'s; (d) ``--kernel step`` (K2 and K3); (e) ``--workers 1,2``, the
+   fleet differential; (f) ``--scenario all`` at full size (a 429, fairness,
+   0 mismatches, 0 steady builds), ``--scenario elastic --smoke`` and
+   ``--scenario preempt --smoke --kernel plain``; (g) the classic soak of
+   120 configs (the kernels against the C++ core and the object oracle),
+   ``cli chaos --configs 16 --jobs 4 --liveness`` and the crash drill;
+17. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -245,18 +260,11 @@ FAULT_KINDS = FUSED_FAULTS[1:]
 # Config4 under each §9 fault schedule: the JAX package's per-instance
 # results for instances 0-1999 (artifacts/sweep_faults/make_reference.py).
 SWEEP_FAULTS_FILE = "artifacts/sweep_faults/bracha_n512_f170_none_shared_urn2_{kind}_s0_i0-2000.npz"
-# The divergence tool's fault leg: its four configs (a copy of FAULT_GRID in
-# the JAX package's tools/divergence.py), each run at 400 instances without
-# a schedule and under each kind, against the committed rows.
+# The divergence tool's fault leg: the four configs of the port's
+# tools/divergence.py FAULT_GRID, each run at 400 instances without a
+# schedule and under each kind, against the committed rows.
 DIVERGENCE_FILE = "artifacts/divergence_r23.json"
-DIVERGENCE_FAULT_GRID = (
-    dict(protocol="benor", n=9, f=3, adversary="crash", coin="local", seed=1),
-    dict(protocol="benor", n=9, f=4, adversary="none", coin="local", seed=2),
-    dict(protocol="bracha", n=16, f=5, adversary="byzantine", coin="shared", seed=3),
-    dict(protocol="bracha", n=16, f=5, adversary="adaptive", coin="shared", seed=4),
-)
 DIVERGENCE_INSTANCES = 400
-DIVERGENCE_ROUND_CAP = 96
 # Phase 9's references: the committee cost curve (tools/cost_curve.py
 # --committee-r19 of the JAX package: its committee legs and its urn2/urn3
 # baselines), config 5's shape at n=512, 1024 and 2048 under urn2 and urn3,
@@ -1171,41 +1179,25 @@ def fault_grid():
     return [c.validate() for c in out]
 
 
-def rounds_hist_tv(ra, rb) -> float:
-    """Total-variation distance between two rounds histograms, as the
-    divergence tool computes it."""
-    hi = int(max(ra.max(initial=0), rb.max(initial=0))) + 1
-    pa = np.bincount(ra, minlength=hi) / max(1, len(ra))
-    pb = np.bincount(rb, minlength=hi) / max(1, len(rb))
-    return float(0.5 * np.abs(pa - pb).sum())
-
-
 def divergence_phase(backend):
-    """The divergence tool's fault leg through ``backend``: each of its four
-    configs without a schedule and under each kind, every field of its
-    committed row recomputed from this run and compared for equality."""
-    from byzantinerandomizedconsensus_tpu_torch.config import SimConfig
+    """The divergence tool's fault leg through ``backend``: each row of the
+    port's ``tools/divergence.py`` (its ``FAULT_GRID`` without a schedule
+    and under each kind) recomputed from this run, every field of its
+    committed row compared for equality."""
+    from byzantinerandomizedconsensus_tpu_torch.tools import divergence
 
     rows = json.loads((ROOT / DIVERGENCE_FILE).read_text())["fault_rows"]
-    for fields, row in zip(DIVERGENCE_FAULT_GRID, rows, strict=True):
-        base = SimConfig(instances=DIVERGENCE_INSTANCES, round_cap=DIVERGENCE_ROUND_CAP,
-                         delivery="urn2", **fields).validate()
+    for cfg, row in zip(divergence.FAULT_GRID, rows, strict=True):
         reset_launches()
-        res = {kind: backend.run(dataclasses.replace(base, faults=kind))
-               for kind in FUSED_FAULTS}
+        got = divergence.fault_row(cfg, DIVERGENCE_INSTANCES, backend)
         if read_launches()["fused_round"] < len(FUSED_FAULTS):
-            fail(f"the divergence fault row {fields} did not run through fused_round")
-        got = {}
-        for kind, r in res.items():
-            got[f"mean_rounds_{kind}"] = float(r.rounds.mean())
-            got[f"capped_{kind}"] = float((r.decision == 2).mean())
-            got[f"p1_{kind}"] = float((r.decision == 1).mean())
-            if kind != "none":
-                got[f"rounds_hist_tv_{kind}"] = rounds_hist_tv(res["none"].rounds, r.rounds)
-        diff = {k: (v, row[k]) for k, v in got.items() if row[k] != v}
-        if diff or any(row[k] != v for k, v in fields.items()):
-            fail(f"the divergence fault row {fields} differs from {DIVERGENCE_FILE}: {diff}")
-        say(f"[faults] divergence row {fields}: all {len(got)} fields equal "
+            fail(f"the divergence fault row {cfg} did not run through fused_round")
+        diff = {k: (got.get(k), v) for k, v in row.items()
+                if k != "backend" and got.get(k) != v}
+        if diff:
+            fail(f"the divergence fault row {cfg} differs from {DIVERGENCE_FILE}: {diff}")
+        say(f"[faults] divergence row {cfg.protocol} n={cfg.n} f={cfg.f} {cfg.adversary} "
+            f"{cfg.coin} seed {cfg.seed}: all {len(row) - 1} fields equal "
             f"{DIVERGENCE_FILE} fault_rows ({DIVERGENCE_INSTANCES} instances per kind, "
             f"through fused_round): {got}")
 
@@ -3336,6 +3328,283 @@ def fleet_phase(card, single_rows):
                           "latency_ms": step["row"]["latency_ms"]}]}
 
 
+# Phase 16: the load drivers on the card. The reference's digest of its
+# generator-v3 stream (seed 15, 200 requests, rate 4/s), and the defaults
+# the steps run at: loadgen's (seed 14, 200 requests, rate 4/s), the hostile
+# suite's (seed 18), the soak's documented claim (120 configs, seed 0).
+LOADGEN_DIGEST_FILE = "artifacts/serve_fleet_migrate_r23.json"
+LOADGEN_SMOKE = 24
+SOAK_CONFIGS = 120
+CHAOS_CONFIGS = 16
+CHAOS_JOBS = 4
+BACKGROUND_STEP_S = 600.0
+
+
+def cli_step(label, argv, out=None):
+    """Run ``cli.main(argv)`` (a user's entry point, in this process) and
+    fail unless it exits 0; returns ``(record or None, wall_s)``."""
+    from byzantinerandomizedconsensus_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(argv + (["--out", str(out)] if out is not None else []))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{label}: `cli {' '.join(argv)}` exited {rc}")
+    say(f"[load] `cli {' '.join(argv)}`: rc 0 in {wall:.1f} s")
+    return (json.loads(pathlib.Path(out).read_text()) if out is not None else None), wall
+
+
+def in_background(steps):
+    """Run ``steps``, a list of ``(label, argv or callable)``, one after
+    another in a thread: an argv as a process of its own from the
+    checkout's root (its launches never reach this process's counters), a
+    callable in the thread. Returns the thread and ``{label: (rc or
+    result, wall_s, output tail)}``, with ``"error"`` set if a step raised."""
+    import threading
+
+    out = {}
+
+    def work():
+        for label, step in steps:
+            t0 = time.perf_counter()
+            try:
+                if callable(step):
+                    out[label] = (step(), time.perf_counter() - t0, "")
+                else:
+                    proc = subprocess.run([sys.executable, "-m", *step], capture_output=True,
+                                          text=True, timeout=BACKGROUND_STEP_S, cwd=ROOT)
+                    out[label] = (proc.returncode, time.perf_counter() - t0,
+                                  (proc.stdout + proc.stderr)[-3000:])
+            except BaseException as e:  # noqa: BLE001 — the main thread fails on it
+                out["error"] = f"{label}: {e!r}"
+                return
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    return thread, out
+
+
+def join_background(thread, out, labels):
+    """Wait for a background thread; fail if it raised, is still running,
+    or a process step exited nonzero. Returns ``out``."""
+    thread.join(BACKGROUND_STEP_S * len(labels) + 60.0)
+    if thread.is_alive() or "error" in out:
+        fail(f"background steps {labels}: {out.get('error', 'still running')}")
+    for label in labels:
+        result, wall, tail = out[label]
+        if isinstance(result, int) and result != 0:
+            fail(f"{label} exited {result}: {tail}")
+        say(f"[load] {label}: done in {wall:.1f} s (in the background)")
+    return out
+
+
+def census_by_library(doc) -> dict:
+    """Kernel launches per library from a record's census block."""
+    out: dict = {}
+    for e in (doc.get("programs") or {}).get("programs", []):
+        if e["key"].startswith("kernel/"):
+            out[e["library"]] = out.get(e["library"], 0) + e["calls"]
+    return out
+
+
+def loadgen_checks(label, doc, card):
+    """The serving record's gates, and its numbers printed."""
+    serve, diff = doc["serve"], doc["differential"]
+    if serve["steady_state_compiles"] or diff["mismatches"] or doc["failed"]:
+        fail(f"{label}: {serve['steady_state_compiles']} steady-state builds, "
+             f"{diff['mismatches']} mismatches ({diff['detail']}), failed {doc['failed']}")
+    open_leg, burst = doc["legs"]["open_loop"], doc["legs"]["burst"]
+    off = doc["legs"].get("offline")
+    say(f"[load] {label}: {doc['leg']} leg on {doc['device']}, {serve['requests']} "
+        f"requests, burst {burst['throughput_cps']} configs/s (p50 "
+        f"{burst['latency_ms']['p50']} ms), open loop p50 {open_leg['latency_ms']['p50']} "
+        f"ms p99 {open_leg['latency_ms']['p99']} ms, time to first result "
+        f"{open_leg['time_to_first_result_ms']} ms"
+        + (f", offline ({off['mode']}) walls {off['walls_s']} s" if off else "")
+        + f"; {serve['warmup_requests']} warm-up requests, {serve['warmup_compiles']} "
+        f"builds, 0 after; {diff['sessions_replayed']} sessions replayed; 0 mismatches "
+        f"against the plain driver; launches in the measured legs {doc['launches']}; {card}")
+
+
+def loadgen_phase(card):
+    """Phase 16: the load drivers on the card. Returns {library: launches}
+    of the default loadgen run (from the census)."""
+    import os
+    import tempfile
+
+    from byzantinerandomizedconsensus_tpu_torch.obs import programs
+    from byzantinerandomizedconsensus_tpu_torch.tools import loadgen, soak
+
+    t_phase = time.perf_counter()
+    walls = {}
+    cli = "byzantinerandomizedconsensus_tpu_torch.cli"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # (a) the stream digest against the reference's
+        digest = loadgen.stream_digest(loadgen.request_stream(200, 15, 4.0))
+        ref = json.loads((ROOT / LOADGEN_DIGEST_FILE).read_text())["stream_digest"]
+        if digest != ref:
+            fail(f"stream_digest(request_stream(200, 15, 4.0)) {digest} != {ref}")
+        say(f"[load] stream digest (seed 15, 200 requests, rate 4) {digest} == "
+            f"{LOADGEN_DIGEST_FILE}")
+        stream = loadgen.request_stream(200, 14, 4.0)
+        n_sessions = sum(1 for *_, slots in stream if slots > 1)
+
+        # (b) the reference's default load on the direct leg, census on,
+        # nothing else running
+        programs.disable()
+        os.environ[programs.PROGRAMS_ENV] = "1"
+        reset_launches()
+        try:
+            doc_b, walls["b"] = cli_step("loadgen", ["loadgen", "--device", "cuda"],
+                                         tmp / "b.json")
+        finally:
+            os.environ.pop(programs.PROGRAMS_ENV, None)
+            programs.disable()
+        launched_b = read_launches()
+        by_lib = census_by_library(doc_b)
+        loadgen_checks("cli loadgen (seed 14, 200 requests, rate 4/s)", doc_b, card)
+        if doc_b["leg"] != "direct" or doc_b["differential"]["sessions_replayed"] != n_sessions:
+            fail(f"cli loadgen: leg {doc_b['leg']}, {doc_b['differential']['sessions_replayed']} "
+                 f"of {n_sessions} sessions replayed")
+        if launched_b["fused_round"] < 1 or launched_b["keys_step"] < 1:
+            fail(f"cli loadgen launched {launched_b}: K1 and K2 expected")
+        if sum(by_lib.values()) != sum(launched_b.values()):
+            fail(f"the census {by_lib} disagrees with the launch counts {launched_b}")
+        say(f"[load] cli loadgen launches, this run (warm-up, legs, offline): {launched_b}; "
+            f"per library (census): {by_lib}; {card}")
+
+        # Beside (c) and (d), each in processes of their own (no launch of
+        # this process's counters): (g) the chaos soak and the crash drill,
+        # the classic soak; (e) the fleet; the elastic and preempt drills of
+        # (f), whose timing gates are sleep-dominated.
+        t_bg = time.perf_counter()
+        bg_preempt = in_background([
+            ("preempt", [cli, "loadgen", "--scenario", "preempt", "--smoke",
+                         "--kernel", "plain", "--out", str(tmp / "pr.json")])])
+
+        bg_chaos = in_background([
+            ("chaos", [cli, "chaos", "--configs", str(CHAOS_CONFIGS), "--jobs",
+                       str(CHAOS_JOBS), "--liveness", "--out", str(tmp / "chaos.json")]),
+            ("drill", lambda: soak.run_soak(2, seed=0, oracle_every=100, chaos=True,
+                                            timeout_s=120, backoff_s=0.05,
+                                            checkpoint=str(tmp / "drill.ckpt"),
+                                            inject={0: "crash"}, jobs=2,
+                                            progress=lambda *a: None))])
+        bg_soak = in_background([
+            ("soak", ["byzantinerandomizedconsensus_tpu_torch.tools.soak", "--configs",
+                      str(SOAK_CONFIGS), "--out", str(tmp / "soak.json")])])
+        bg_fleet = in_background([
+            ("fleet", [cli, "loadgen", "--workers", "1,2", "--smoke",
+                       "--out", str(tmp / "e.json")])])
+        bg_elastic = in_background([
+            ("elastic", [cli, "loadgen", "--scenario", "elastic", "--smoke",
+                         "--out", str(tmp / "el.json")])])
+        # (c) the lane leg on the same stream's first requests: no kernel
+        reset_launches()
+        doc_c, walls["c"] = cli_step("loadgen --kernel plain",
+                                     ["loadgen", "--smoke", "--kernel", "plain",
+                                      "--no-offline"], tmp / "c.json")
+        if any(read_launches().values()):
+            fail(f"the lane leg launched {read_launches()}")
+        loadgen_checks("cli loadgen --smoke --kernel plain", doc_c, card)
+        digests_b = doc_b["differential"]["reply_digests"][:LOADGEN_SMOKE]
+        if doc_c["leg"] != "lanes" or doc_c["differential"]["reply_digests"] != digests_b:
+            fail("the lane leg's replies differ from the direct leg's for the same requests")
+        say(f"[load] lane leg: 0 launches; all {LOADGEN_SMOKE} replies equal the direct "
+            f"leg's replies to the same requests")
+
+        # (d) the step kernel
+        reset_launches()
+        doc_d, walls["d"] = cli_step("loadgen --kernel step",
+                                     ["loadgen", "--smoke", "--kernel", "step"],
+                                     tmp / "d.json")
+        launched_d = read_launches()
+        if launched_d["urn_step"] < 1 or launched_d["keys_step"] < 1 or launched_d["fused_round"]:
+            fail(f"loadgen --kernel step launched {launched_d}: K2 and K3 only expected")
+        loadgen_checks("cli loadgen --smoke --kernel step", doc_d, card)
+        say(f"[load] --kernel step: launches {launched_d}; left out by name "
+            f"{doc_d['unsupported']}")
+
+        # (g) the soaks, back from the background
+        bg = join_background(*bg_chaos, ["chaos", "drill"])
+        doc_ch = json.loads((tmp / "chaos.json").read_text())
+        if doc_ch["mismatches"] or doc_ch["violations"] or doc_ch["skipped"]:
+            fail(f"cli chaos: {doc_ch['mismatches'][:2]} {doc_ch['violations'][:2]} "
+                 f"{doc_ch['skipped'][:2]}")
+        say(f"[load] cli chaos --configs {CHAOS_CONFIGS} --jobs {CHAOS_JOBS} --liveness: "
+            f"device legs {doc_ch['kernels']}, {doc_ch['safety_checked_instances']} instances "
+            f"checked for safety, 0 mismatches, violations or skips; liveness "
+            f"{doc_ch['liveness']['summary']}; {card}")
+        drill = bg["drill"][0]
+        skipped = drill["skipped"]
+        if [r.get("index") for r in skipped] != [0] or skipped[0]["attempts"] != 2 \
+                or "exit 139" not in skipped[0]["error"] or drill["mismatches"]:
+            fail(f"the crash drill: {skipped} {drill['mismatches']}")
+        say(f"[load] chaos crash drill: config 0 retried and skipped with its record "
+            f"({skipped[0]['error'][:80]}), config 1 ok")
+        join_background(*bg_soak, ["soak"])
+        doc_s = json.loads((tmp / "soak.json").read_text())
+        if doc_s["mismatches"] or not doc_s["oracle_subsampled_configs"] \
+                or set(doc_s["kernels"]) != {"fused", "step"}:
+            fail(f"the classic soak: kernels {doc_s['kernels']}, {doc_s['mismatches'][:2]}")
+        say(f"[load] soak --configs {SOAK_CONFIGS}: kernels {doc_s['kernels']} against native "
+            f"and {doc_s['oracle_subsampled_configs']} oracle subsamples, 0 mismatches; {card}")
+
+        # (e) the fleet, one and two worker processes; the elastic drills
+        join_background(*bg_fleet, ["fleet"])
+        join_background(*bg_elastic, ["elastic"])
+        doc_e = json.loads((tmp / "e.json").read_text())
+        fd = doc_e["differential"]
+        if fd["mismatches"] or doc_e["fleet"]["steady_state_compiles"]:
+            fail(f"the fleet: {fd['mismatches']} mismatches, "
+                 f"{doc_e['fleet']['steady_state_compiles']} steady-state builds")
+        legs_e = {k: (leg["burst"]["throughput_cps"], leg["steady_state_compiles"],
+                      [w["launches"] for w in leg["per_worker"]])
+                  for k, leg in doc_e["legs"].items()}
+        say(f"[load] cli loadgen --workers 1,2 --smoke: {fd['compared']} replies compared, 0 "
+            f"mismatches; per worker count (burst configs/s, steady builds, worker "
+            f"launches): {legs_e}; open loop p50/p99 "
+            f"{doc_e['fleet']['latency_ms']} ms; {card}")
+        doc_el = json.loads((tmp / "el.json").read_text())
+        say(f"[load] --scenario elastic --smoke: {doc_el['elastic']['scenarios']}; {card}")
+        # (f) the hostile suite at full size, with only the preempt drills
+        # left beside it: its clients meet the servers' bounds (429s, the
+        # per-tenant cap) as the reference's do
+        reset_launches()
+        doc_f, walls["f"] = cli_step("loadgen --scenario all",
+                                     ["loadgen", "--scenario", "all"], tmp / "f.json")
+        hb = doc_f["hostile"]
+        if hb["rejected_overflow"] < 1 or hb["mismatches"] or hb["steady_state_compiles"] \
+                or not (hb["fairness"] or {}).get("ok"):
+            fail(f"the hostile suite: {hb}")
+        say(f"[load] cli loadgen --scenario all ({doc_f['leg']} leg): "
+            + "; ".join(f"{r['scenario']} {r['replied']}/{r['requests']} replied, "
+                        f"rejected {r['rejected']}, cancelled {r['cancelled']}"
+                        for r in hb["scenarios"])
+            + f"; {hb['rejected_overflow']} overflow 429s, fairness {hb['fairness']}, "
+              f"deadline hit rate {hb['deadline_hit_rate']}, 0 mismatches, 0 steady builds; "
+              f"launches {read_launches()}; {card}")
+        join_background(*bg_preempt, ["preempt"])
+        walls["background"] = time.perf_counter() - t_bg
+        doc_pr = json.loads((tmp / "pr.json").read_text())
+        say(f"[load] --scenario preempt --smoke --kernel plain: {doc_pr['preempt']}; "
+            f"restore grid {doc_pr['lanestate']['grid_points']} points, "
+            f"{doc_pr['lanestate']['restore_mismatches']} mismatches; {card}")
+
+    wall = time.perf_counter() - t_phase
+    say(f"[load] phase 16 took {wall:.1f} s; steps {walls}")
+    say("[load] " + json.dumps({"load": {
+        "by_library": by_lib, "launches": launched_b, "walls_s": walls,
+        "serve": doc_b["serve"], "legs": doc_b["legs"], "fleet_legs": legs_e,
+        "background_s": {k: v[1] for k, v in bg.items()},
+        "hostile": {r["scenario"]: {k: r.get(k) for k in ("replied", "rejected", "cancelled",
+                                                          "deadline_hit_rate")}
+                    for r in hb["scenarios"]},
+        "phase_wall_s": wall}}))
+    return by_lib
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3526,6 +3795,14 @@ def main() -> int:
     # serve --workers 2, and each worker's kernel census.
     for kernel, entries in fleet_phase(card, single_rows).items():
         by_name[kernel]["paths"] += entries
+
+    # Phase 16: the load drivers (loadgen, the hostile suite, the soaks)
+    # through K1, K2 and K3; each library's launches in the default load.
+    by_name = {k["name"]: k for k in kernels}
+    for lib, launches in loadgen_phase(card).items():
+        by_name[lib].setdefault("paths", []).append({
+            "config": "cli loadgen (seed 14, 200 requests, rate 4/s, direct leg)",
+            "launches": launches, "max_abs_err": 0})
 
     say(json.dumps({"kernels": kernels}))
     say(card)

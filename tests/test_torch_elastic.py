@@ -8,10 +8,11 @@ journal recovered by the other package's fleet, both ways); the
 autoscaler's control law driven through an injected clock, which makes the
 reference's decisions on the same stats; the recovering-503 gate over
 HTTP; the thread fleet's scale-up and scale-down; the respawn budget on a
-process fleet (``slow``, as the reference marks it); and, in place of the
-reference's ``loadgen`` drill (the load drivers are not ported), ``cli
-serve --workers 2`` SIGKILLed with replies owed and restarted with
-``--recover``. Every reply equals the reference's
+process fleet (``slow``, as the reference marks it); and ``cli serve
+--workers 2`` SIGKILLed with replies owed and restarted with
+``--recover``. The reference's ``loadgen --scenario dispatcher_kill``
+drill is ported with the load drivers and held in
+``tests/test_torch_hostile.py``. Every reply equals the reference's
 ``get_backend("numpy").run(cfg)`` per instance.
 """
 

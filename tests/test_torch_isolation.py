@@ -60,5 +60,7 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
                    "core.simulator", "backends.cpu", "backends.native_backend",
                    "tools.acceptance", "obs.metrics", "obs.trace", "models.session",
                    "backends.batch", "backends.compaction", "backends.lanestate",
-                   "serve", "serve.admission", "serve.wal", "serve.server"):
+                   "serve", "serve.admission", "serve.wal", "serve.server",
+                   "utils.rounds", "utils.timing", "utils.profiling", "tools.sampler",
+                   "tools.divergence", "tools.soak", "tools.loadgen", "tools.hostile"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]
