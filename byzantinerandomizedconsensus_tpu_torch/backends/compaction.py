@@ -404,6 +404,19 @@ def _make_segment(bucket, seg: int, counters: bool):
     return segment
 
 
+#: Programs one bucket's grid builds under a feed (the serving path): init,
+#: refill, segment and the drain segment, each at the policy tier's width.
+FEED_PROGRAMS_PER_BUCKET = 4
+
+
+def reserve_programs(backend, buckets) -> None:
+    """Size the backend's program cache to hold every feed program of
+    ``buckets``, so a warm-up that builds them all keeps them built (the
+    default 32 entries hold eight buckets)."""
+    cache = compile_cache(backend)
+    cache.max_entries = max(cache.max_entries, FEED_PROGRAMS_PER_BUCKET * len(buckets))
+
+
 def run_bucket(backend, bucket, cfgs, ids_list, policy=None, counters: bool = False,
                progress=None, feed=None, on_retire=None, control=None, imports=None):
     """Run every instance of every config of ONE bucket through the

@@ -19,7 +19,10 @@
   fleet (``tools/loadgen.py``; its options pass through), and with
   ``--scenario NAME`` the hostile and elastic drills (``tools/hostile.py``);
 - ``chaos``: the randomized differential soak in chaos mode
-  (``tools/soak.py --chaos``; its options pass through).
+  (``tools/soak.py --chaos``; its options pass through);
+- ``hunt``: the adversary hunter over the server (``hunt/hunter.py``; its
+  options pass through): a seeded worst-case search, on the card through
+  the direct leg, with ``--kernel plain`` the lane leg.
 
 Everything runs on the card unless ``--device cpu`` is given.
 
@@ -52,6 +55,7 @@ Everything runs on the card unless ``--device cpu`` is given.
     python -m byzantinerandomizedconsensus_tpu_torch.cli loadgen
     python -m byzantinerandomizedconsensus_tpu_torch.cli loadgen --scenario all
     python -m byzantinerandomizedconsensus_tpu_torch.cli chaos --configs 16 --jobs 4
+    python -m byzantinerandomizedconsensus_tpu_torch.cli hunt --out hunt.json
 """
 
 from __future__ import annotations
@@ -508,6 +512,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--kernel fused|step|plain (plain: the compacted "
                         "lane grid), --wal DIR, --recover DIR; the fleet "
                         "options are refused by name")
+    sub.add_parser("hunt", add_help=False,
+                   help="the adversary hunter over the server (hunt/hunter.py; "
+                        "every further option passes through, see hunt "
+                        "--help): --strategy, --budget, --seed, --device, "
+                        "--kernel plain (the lane leg), --url, "
+                        "--committee-scale")
     return ap
 
 
@@ -527,6 +537,10 @@ def main(argv=None) -> int:
         from byzantinerandomizedconsensus_tpu_torch.tools import soak
 
         return soak.main(["--chaos", *argv[1:]])
+    if argv and argv[0] == "hunt":
+        from byzantinerandomizedconsensus_tpu_torch.hunt import hunter
+
+        return hunter.main(argv[1:])
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -329,7 +329,11 @@ def warm_up(server, buckets, burst: int = 6, extra=()) -> list:
     request; then ``extra`` (the direct leg's one config per library). On
     the lane leg every grid is then closed live once more
     (:func:`close_grids_live`): whether a burst's rotation caught live
-    lanes depends on timing. Returns the handles, waited for."""
+    lanes depends on timing; there the backend's program cache is first
+    sized to hold every bucket's programs. Returns the handles, waited
+    for."""
+    if server.leg == "lanes":
+        _compaction.reserve_programs(server._backend, buckets)
     handles = []
     seq = 0
     for bucket in buckets:

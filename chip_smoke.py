@@ -89,7 +89,7 @@ Phases, in order; any failure exits nonzero and prints no result:
    against the histograms of ``artifacts/product_r4.json`` and against
    each other per instance; config1-4 under keys through ``keys_step``,
    ids 0-255 against ``artifacts/sweep_keys_shipped/`` and against the plain
-   path on the card (config4: ids 0-1999), and Ben-Or's Byzantine pairing
+   path on the card (config2 and config4: ids 0-1999), and Ben-Or's Byzantine pairing
    (n=64, f=12) under keys and urn against its records there; the 15 rows
    of ``artifacts/divergence_r5.json`` under keys and under urn (both
    kernels); the two urn rows of ``artifacts/fused_r20.json`` and config
@@ -199,7 +199,24 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``--scenario preempt --smoke --kernel plain``; (g) the classic soak of
    120 configs (the kernels against the C++ core and the object oracle),
    ``cli chaos --configs 16 --jobs 4 --liveness`` and the crash drill;
-17. a ``{"kernels": [...]}`` line, the card line, and last
+17. (alone, after phase 16's processes have ended) the adversary hunter
+   (``hunt/``) through ``cli hunt``, each hunt's archive held digest for
+   digest against the reference's hunts of
+   ``artifacts/hunt_port/reference.json``: (a) the defaults (evolution,
+   seed 17, budget 500, generation 16, archive 8) on the direct leg, K1
+   and K2 counted per library from the kernel census, pipelined and then
+   the barriered control, without the per-reply invariant checks, with 0
+   builds after the warm-up, every archive entry replayed on the card and
+   the rediscovery pin against the config4 baseline; then the same hunt's
+   first 64 evaluations with every reply's invariants checked on the card,
+   pipelined and barriered; (b) each archive entry of (a) and of (d)
+   through the kernel by law and the plain driver on the card, per
+   instance, and its safety invariants, and each library the hunts
+   launched that no entry reached on the warm-up's config for it; (c) one
+   small hunt in process, on the lane leg (``--kernel plain``, 0
+   launches) and with ``--url`` against a ``cli serve`` subprocess; (d)
+   ``--committee-scale``;
+18. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -304,8 +321,9 @@ FUSED_R20_URN_ROWS = (
 # 1100 and 4096; instances per config and round cap there.
 LAW_GRID = ((4, 16), (64, 16), (256, 8), (1100, 4), (4096, 2))
 LAW_GRID_ROUNDS = 2
-# The plain version on config4 under keys, ids 0..PLAIN_KEYS_IDS-1: its
-# (B, n, n) keys make all 100,000 instances take minutes.
+# The plain version under keys on ids 0..PLAIN_KEYS_IDS-1 of a larger run:
+# its (B, n, n) keys make config4's 100,000 instances take minutes, and
+# config2's 10,000 about a minute with its timed cell.
 PLAIN_KEYS_IDS = 2000
 
 # Phase 11, the replica-sharded path on one card: the layouts config4 runs
@@ -1661,8 +1679,8 @@ def check_against_shard(res, cfg, label):
 
 def keys_shipped_phase(card, dev):
     """config1-4 under the keys law through K2: ids 0-255 against the
-    committed record, the plain version on the card on all ids (config4: ids
-    0-1999), the timed cells config2-4; then Ben-Or's Byzantine pairing
+    committed record, the plain version on the card on ids up to
+    PLAIN_KEYS_IDS, the timed cells config2-4; then Ben-Or's Byzantine pairing
     under keys (K2) and urn (K1, K3) against its records. Returns the K2
     paths."""
     from byzantinerandomizedconsensus_tpu_torch import get_backend, preset
@@ -1676,7 +1694,8 @@ def keys_shipped_phase(card, dev):
         label = f"{name} keys"
         res, _ = run_counted(step, cfg, "keys_step", f"{label} (K2)")
         n_ref, path = check_against_shard(res, cfg, label)
-        ids = None if name != "config4" else np.arange(PLAIN_KEYS_IDS)
+        cut = PLAIN_KEYS_IDS if cfg.instances > PLAIN_KEYS_IDS else None
+        ids = None if cut is None else np.arange(cut)
         t0 = time.perf_counter()
         pres = plain.run(cfg, inst_ids=ids)
         plain_s = time.perf_counter() - t0
@@ -1690,7 +1709,7 @@ def keys_shipped_phase(card, dev):
             f"({plain_s:.1f} s); {histogram_fields(res)['decision_histogram']}")
         if name != "config1":
             paths.append(step_cell(cfg, "keys", f"{label} (K2)", card, dev,
-                                   plain_ids=PLAIN_KEYS_IDS if name == "config4" else None))
+                                   plain_ids=cut))
     for law in ("keys", "urn"):
         cfg = SimConfig(delivery=law, **BENOR_BYZANTINE).validate()
         label = f"Ben-Or byzantine n=64 f=12 {law}"
@@ -3605,6 +3624,283 @@ def loadgen_phase(card):
     return by_lib
 
 
+# Phase 17: the adversary hunter on the card. The reference hunts of
+# artifacts/hunt_port/make_reference.py (the JAX package's Hunter over its
+# numpy backend): (a) the cli hunt defaults, (c) a small hunt, (d) the
+# committee-scale wing. A stuck reply fails the phase by name. (a) runs
+# without the per-reply invariant checks: on the card each check is a run
+# of the plain driver with its full state, 0.72 s a candidate against 6.7
+# ms for the candidate's own run through K1 (PERF.md §4). Its first
+# HUNT_CHECKED evaluations run again with every reply checked; (b), (c)
+# and (d) check every reply and archive entry they see.
+HUNT_REFERENCE_FILE = "artifacts/hunt_port/reference.json"
+HUNT_WAIT_S = 300.0
+HUNT_CHECKED = 64
+HUNT_SMALL = ["--budget", "16", "--generation", "8", "--archive-k", "4", "--no-control"]
+HUNT_COMMITTEE = ["--committee-scale", "--budget", "32", "--generation", "8", "--no-control"]
+
+
+def hunt_step(label, argv, tmp, name, census=False):
+    """``cli hunt`` in this process (rc 0 required) with the kernel census
+    on where asked: ``(record, regressions doc, wall_s, wrapper launches,
+    {library: launches} from the census)``."""
+    import os
+
+    from byzantinerandomizedconsensus_tpu_torch.obs import programs
+
+    reg = tmp / f"{name}_regressions.json"
+    argv = ["hunt", *argv, "--regressions-out", str(reg)]
+    programs.disable()
+    if census:
+        os.environ[programs.PROGRAMS_ENV] = "1"
+    reset_launches()
+    try:
+        doc, wall = cli_step(label, argv, tmp / f"{name}.json")
+    finally:
+        os.environ.pop(programs.PROGRAMS_ENV, None)
+        programs.disable()
+    launched = read_launches()
+    by_lib = census_by_library(doc)
+    if census and sum(by_lib.values()) != sum(launched.values()):
+        fail(f"{label}: the census {by_lib} disagrees with the launch counts {launched}")
+    return doc, json.loads(reg.read_text()), wall, launched, by_lib
+
+
+def hunt_equal(label, reg, leg):
+    """A hunt's archive against a reference leg: every digest and fitness in
+    order, the evaluations and the best fitness."""
+    got = [(e["digest"], e["fitness"]) for e in reg["entries"]]
+    want = [(e["digest"], e["fitness"]) for e in leg["archive"]]
+    hunt = reg["hunt"]
+    if got != want or hunt["best_fitness"] != leg["best_fitness"] \
+            or hunt["evaluations"] != leg["evaluations"]:
+        fail(f"{label}: archive {[(d[:12], f) for d, f in got]} (best {hunt['best_fitness']}, "
+             f"{hunt['evaluations']} evaluations) != the reference's "
+             f"{[(d[:12], f) for d, f in want]} (best {leg['best_fitness']}, "
+             f"{leg['evaluations']})")
+
+
+def hunt_checks(label, doc, baseline):
+    """The hunt record's gates: violations, builds after the warm-up, the
+    replay check, the rediscovery pin and the baseline."""
+    h = doc["hunt"]
+    bad = [r for r in doc["replay_check"] if not r["ok"]]
+    red = h["rediscovery"]
+    if h["violations"] or h["steady_state_compiles"] not in (0, None) or bad \
+            or not doc["replay_check"] or not red["above_baseline"] \
+            or h["baseline_mean_rounds"] != baseline:
+        fail(f"{label}: violations {h['violations']}, steady-state builds "
+             f"{h['steady_state_compiles']}, replays failed {bad}, rediscovery {red}, "
+             f"baseline {h['baseline_mean_rounds']} (reference {baseline})")
+
+
+def hunt_compare(label, cfg, law, plain, card, want=None):
+    """One config through the card's kernel by law and through the plain
+    driver with its full state on the card: the kernel must equal plain per
+    instance (and ``want``, the archived arrays, where given) and the state
+    must keep the safety invariants. Returns ``(library, max abs err)``."""
+    from byzantinerandomizedconsensus_tpu_torch.models import invariants
+    from byzantinerandomizedconsensus_tpu_torch.tools import loadgen
+
+    rk = law.run(cfg)
+    rp, state, faulty = plain.run_with_state(cfg)
+    err = max(int(np.abs(rk.rounds.astype(np.int64) - rp.rounds).max()),
+              int(np.abs(rk.decision.astype(np.int64) - rp.decision).max()))
+    lib = loadgen.library_of(law, cfg) or "plain"
+    if err or (want is not None and (rk.rounds.tolist(), rk.decision.tolist()) != want):
+        fail(f"{label} ({cfg.delivery}, faults {cfg.faults}): {law.kernel_for(cfg)} ({lib}) "
+             f"against plain max abs err {err}, or not the archived arrays")
+    viols = invariants.state_violations(cfg, state, faulty, res=rp, inst_ids=rp.inst_ids)
+    if viols:
+        fail(f"{label}: safety violations {viols[:2]}")
+    say(f"[hunt] (b) {label}: {cfg.protocol} n={cfg.n} f={cfg.f} {cfg.adversary} "
+        f"{cfg.delivery} faults {cfg.faults}, {cfg.instances} instances, cap {cfg.round_cap}, "
+        f"max rounds {int(rk.rounds.max())}: {law.kernel_for(cfg)} ({lib}) == plain on the "
+        f"card per instance{' == the archived arrays' if want is not None else ''}, "
+        f"0 violations; {card}")
+    return lib, err
+
+
+def hunt_errs(label, reg, by_lib, committee_scale, card):
+    """Phase 17b for one hunt: each archive entry of ``reg``, then, for each
+    library the hunt launched (``by_lib``) that no entry reached, the config
+    its warm-up loaded that library with (``hunter.library_sample``). Fails
+    if a launched library has no comparison. Returns ``{library:
+    {"max_abs_err", "compared_on"}}``."""
+    from byzantinerandomizedconsensus_tpu_torch import get_backend
+    from byzantinerandomizedconsensus_tpu_torch.hunt import hunter
+    from byzantinerandomizedconsensus_tpu_torch.hunt import space as hunt_space
+    from byzantinerandomizedconsensus_tpu_torch.tools import loadgen
+
+    law, plain = get_backend("torch"), get_backend("torch", kernel="plain")
+    out = {}
+
+    def note(lib, err, on):
+        row = out.setdefault(lib, {"max_abs_err": 0, "compared_on": []})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["compared_on"].append(on)
+
+    for e in reg["entries"]:
+        on = f"{label} archive entry {e['digest'][:12]} (fitness {e['fitness']})"
+        lib, err = hunt_compare(on, hunt_space.decode(e["genome"]), law, plain, card,
+                                want=(e["rounds"], e["decision"]))
+        note(lib, err, on)
+    space = hunt_space.SearchSpace(committee_scale=committee_scale)
+    warm = {loadgen.library_of(law, c): c
+            for c in loadgen.library_configs(law, hunter.library_sample(space))}
+    for lib in sorted(set(by_lib) - set(out)):
+        if lib not in warm:
+            fail(f"{label} launched {lib}, which neither an archive entry nor a warm-up "
+                 f"config reaches: no comparison with plain")
+        on = f"{label} warm-up config for {lib}"
+        note(*hunt_compare(on, warm[lib], law, plain, card), on)
+    return out
+
+
+def hunt_phase(card):
+    """Phase 17: the adversary hunter on the card, each reply's wait
+    bounded by HUNT_WAIT_S. Returns the census ``{library: launches}`` of
+    (a) and of (d), and (b)'s ``{library: {"max_abs_err", "compared_on"}}``
+    of each."""
+    from byzantinerandomizedconsensus_tpu_torch.hunt import hunter
+
+    wait = hunter.WAIT_TIMEOUT_S
+    hunter.WAIT_TIMEOUT_S = HUNT_WAIT_S
+    try:
+        return _hunt_phase(card)
+    finally:
+        hunter.WAIT_TIMEOUT_S = wait
+
+
+def _hunt_phase(card):
+    import tempfile
+
+    from byzantinerandomizedconsensus_tpu_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    ref = json.loads((ROOT / HUNT_REFERENCE_FILE).read_text())
+    legs, baseline = ref["legs"], ref["baseline_mean_rounds"]
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # (a) the reference's defaults on the direct leg, census on
+        say(f"[hunt] (a) cli hunt --device cuda --no-invariants (the defaults otherwise) ...")
+        doc_a, reg_a, walls["a"], launched_a, by_lib_a = hunt_step(
+            "cli hunt (the defaults)", ["--device", "cuda", "--no-invariants"], tmp, "a",
+            census=True)
+        hunt_checks("cli hunt", doc_a, baseline)
+        hunt_equal("cli hunt, pipelined", reg_a, legs["a"]["pipelined"])
+        control = legs["a"]["barriered"]
+        if doc_a["control_archive_digests"] != [e["digest"] for e in control["archive"]] \
+                or doc_a["control_best_fitness"] != control["best_fitness"]:
+            fail(f"cli hunt, barriered: archive {doc_a['control_archive_digests']} (best "
+                 f"{doc_a['control_best_fitness']}) != the reference's")
+        if doc_a["leg"] != "direct" or launched_a["fused_round"] < 1 \
+                or launched_a["keys_step"] < 1:
+            fail(f"cli hunt: the {doc_a['leg']} leg launched {launched_a}: K1 and K2 expected")
+        h = doc_a["hunt"]
+        kinds = doc_a["by_kernel"]
+        say(f"[hunt] (a) cli hunt (evolution, seed 17, budget 500, generation 16, archive 8, "
+            f"width=64,segment=1, invariants off), direct leg: {h['evaluations']} evaluations, "
+            f"best fitness {h['best_fitness']}, archive of {h['archive_size']} == "
+            f"{HUNT_REFERENCE_FILE} digest for digest, pipelined and barriered; "
+            f"0 builds after the warm-up, {len(doc_a['replay_check'])} replays ok on the "
+            f"card, baseline {h['baseline_mean_rounds']}, rediscovery {h['rediscovery']}; "
+            f"walls: pipelined {h['pipelined_wall_s']} s, barriered {h['barriered_wall_s']} "
+            f"s, pipeline_speedup {h['pipeline_speedup']}; the step {walls['a']:.1f} s; {card}")
+        say(f"[hunt] (a) pipelined evaluations by kernel {kinds} (plain-driver runs "
+            f"{kinds.get('plain', {}).get('evaluations', 0)}); launches in the step "
+            f"(warm-up, both hunts, replays, baseline) {launched_a}, per library (census) "
+            f"{by_lib_a}; {card}")
+
+        # (a) checked: the same hunt's first evaluations, every reply's
+        # invariants checked on the card, pipelined and barriered
+        say(f"[hunt] (a) cli hunt --device cuda --budget {HUNT_CHECKED} (invariants on) ...")
+        doc_k, _, walls["a_checked"], _, _ = hunt_step(
+            f"cli hunt --budget {HUNT_CHECKED}",
+            ["--device", "cuda", "--budget", str(HUNT_CHECKED)], tmp, "a_checked")
+        hunt_checks(f"cli hunt --budget {HUNT_CHECKED}", doc_k, baseline)
+        checks = metrics.snapshot()["brc_serve_invariant_checks_total"]["series"][0]
+        checks = int(checks["value"])
+        if checks != 2 * HUNT_CHECKED:
+            fail(f"cli hunt --budget {HUNT_CHECKED}: {checks} replies checked, not "
+                 f"{2 * HUNT_CHECKED} (pipelined and barriered)")
+        hk = doc_k["hunt"]
+        say(f"[hunt] (a) cli hunt --budget {HUNT_CHECKED} (the defaults otherwise, invariants "
+            f"on): {checks} replies checked on the card, {hk['violations']} violations, best "
+            f"fitness {hk['best_fitness']}, 0 builds after the warm-up; walls: pipelined "
+            f"{hk['pipelined_wall_s']} s, barriered {hk['barriered_wall_s']} s; by kernel "
+            f"{doc_k['by_kernel']}; the step {walls['a_checked']:.1f} s; {card}")
+
+        # (c) one small hunt three ways: in process on the direct leg, on the
+        # lane leg (no launch), against a cli serve subprocess over HTTP
+        say("[hunt] (c) the small hunt three ways ...")
+        doc_c1, reg_c1, walls["c_direct"], _, _ = hunt_step(
+            "cli hunt small, direct", ["--device", "cuda", *HUNT_SMALL], tmp, "c1")
+        doc_c2, reg_c2, walls["c_lanes"], launched_c2, _ = hunt_step(
+            "cli hunt small, lanes", ["--device", "cuda", "--kernel", "plain", *HUNT_SMALL],
+            tmp, "c2")
+        if any(launched_c2.values()) or doc_c2["leg"] != "lanes":
+            fail(f"the lane leg's hunt ({doc_c2['leg']}) launched {launched_c2}")
+        t0 = time.perf_counter()
+        proc, base, lines = serve_process("--device", "cuda")
+        walls["c_serve_start"] = time.perf_counter() - t0
+        try:
+            doc_c3, reg_c3, walls["c_remote"], _, _ = hunt_step(
+                "cli hunt small, --url", ["--device", "cuda", "--url", base, *HUNT_SMALL],
+                tmp, "c3")
+        finally:
+            stop_process(proc)
+        if proc.returncode != 0:
+            fail(f"cli serve exited {proc.returncode}: {lines[-10:]}")
+        for label, doc, reg in (("direct", doc_c1, reg_c1), ("lanes", doc_c2, reg_c2),
+                                ("remote", doc_c3, reg_c3)):
+            hunt_checks(f"cli hunt small ({label})", doc, baseline)
+            hunt_equal(f"cli hunt small ({label})", reg, legs["c"]["pipelined"])
+        say(f"[hunt] (c) small hunt (budget 16, generation 8, archive 4): in process on the "
+            f"direct leg ({walls['c_direct']:.1f} s), on the lane leg with 0 launches "
+            f"({walls['c_lanes']:.1f} s), and with --url against cli serve --device cuda "
+            f"(up in {walls['c_serve_start']:.1f} s; {walls['c_remote']:.1f} s, steady-state "
+            f"builds {doc_c3['hunt']['steady_state_compiles']}, unmeasured) give one archive "
+            f"== the reference's small leg; pipelined walls "
+            f"{[d['hunt']['pipelined_wall_s'] for d in (doc_c1, doc_c2, doc_c3)]} s; {card}")
+
+        # (d) the committee-scale wing on the direct leg, census on
+        say("[hunt] (d) cli hunt --committee-scale ...")
+        doc_d, reg_d, walls["d"], launched_d, by_lib_d = hunt_step(
+            "cli hunt --committee-scale", ["--device", "cuda", *HUNT_COMMITTEE], tmp, "d",
+            census=True)
+        hunt_checks("cli hunt --committee-scale", doc_d, baseline)
+        hunt_equal("cli hunt --committee-scale", reg_d, legs["d"]["pipelined"])
+        committee = {k: v for k, v in by_lib_d.items() if "committee" in k}
+        say(f"[hunt] (d) cli hunt --committee-scale (budget 32, generation 8): archive == the "
+            f"reference's committee leg, best fitness {doc_d['hunt']['best_fitness']}, "
+            f"pipelined {doc_d['hunt']['pipelined_wall_s']} s, step {walls['d']:.1f} s; by "
+            f"kernel {doc_d['by_kernel']}; committee libraries' launches {committee}, all "
+            f"{by_lib_d}; {card}")
+
+        # (b) kernel by law against plain on the card, for every library
+        # (a) and (d) launched
+        t0 = time.perf_counter()
+        errs_a = hunt_errs("(a)", reg_a, by_lib_a, False, card)
+        errs_d = hunt_errs("(d)", reg_d, by_lib_d, True, card)
+        walls["b"] = time.perf_counter() - t0
+
+    wall = time.perf_counter() - t_phase
+    say(f"[hunt] phase 17 took {wall:.1f} s; steps {walls}; {card}")
+    say("[hunt] " + json.dumps({"hunt": {
+        "by_library_a": by_lib_a, "launches_a": launched_a, "by_kernel_a": doc_a["by_kernel"],
+        "by_library_d": by_lib_d, "launches_d": launched_d, "by_kernel_d": doc_d["by_kernel"],
+        "errs_a": errs_a, "errs_d": errs_d, "walls_s": walls,
+        "pipelined_wall_s": doc_a["hunt"]["pipelined_wall_s"],
+        "barriered_wall_s": doc_a["hunt"]["barriered_wall_s"],
+        "pipeline_speedup": doc_a["hunt"]["pipeline_speedup"],
+        "checked": {k: doc_k["hunt"][k] for k in ("evaluations", "violations",
+                                                   "pipelined_wall_s", "barriered_wall_s")},
+        "phase_wall_s": wall}}))
+    return by_lib_a, by_lib_d, errs_a, errs_d
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3803,6 +4099,22 @@ def main() -> int:
         by_name[lib].setdefault("paths", []).append({
             "config": "cli loadgen (seed 14, 200 requests, rate 4/s, direct leg)",
             "launches": launches, "max_abs_err": 0})
+
+    # Phase 17: the adversary hunter (cli hunt) through K1 and K2, each
+    # hunt's archive held against the reference's; each library it
+    # launched held against plain.
+    by_lib_a, by_lib_d, errs_a, errs_d = hunt_phase(card)
+    for label, by_lib, errs in (("cli hunt (evolution, seed 17, budget 500, pipelined and "
+                                 "barriered, direct leg)", by_lib_a, errs_a),
+                                ("cli hunt --committee-scale (budget 32, direct leg)",
+                                 by_lib_d, errs_d)):
+        for lib, launches in by_lib.items():
+            if lib not in by_name:
+                fail(f"the hunt launched {lib}, which has no entry in the kernels line")
+            by_name[lib].setdefault("paths", []).append({
+                "config": label, "launches": launches,
+                "max_abs_err": errs[lib]["max_abs_err"],
+                "compared_on": errs[lib]["compared_on"]})
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -62,5 +62,6 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
                    "backends.batch", "backends.compaction", "backends.lanestate",
                    "serve", "serve.admission", "serve.wal", "serve.server",
                    "utils.rounds", "utils.timing", "utils.profiling", "tools.sampler",
-                   "tools.divergence", "tools.soak", "tools.loadgen", "tools.hostile"):
+                   "tools.divergence", "tools.soak", "tools.loadgen", "tools.hostile",
+                   "hunt", "hunt.space", "hunt.strategies", "hunt.archive", "hunt.hunter"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]
