@@ -38,6 +38,8 @@ from byzantinerandomizedconsensus_tpu_torch.models import adversaries, driver
 from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 from byzantinerandomizedconsensus_tpu_torch.models.delivery import DELIVERIES
 from byzantinerandomizedconsensus_tpu_torch.obs import counters as counters_mod
+from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
+from byzantinerandomizedconsensus_tpu_torch.obs import trace as _trace
 from byzantinerandomizedconsensus_tpu_torch.ops import (
     _build, _step, fused_round, keys_step, prf, urn_step)
 
@@ -149,8 +151,8 @@ class TorchBackend(SimulatorBackend):
 
     def prepare(self, cfg: SimConfig) -> None:
         """Build (or load) the kernel a run of ``cfg`` launches, so a timed
-        run does not pay for it."""
-        if self.kernel_for(cfg) == "plain":
+        run does not pay for it. Off the card there is nothing to build."""
+        if self.kernel_for(cfg) == "plain" or self.device.type != "cuda":
             return
         if self.kernel_for(cfg) == "fused":
             _build.load(fused_round.library(cfg))
@@ -178,7 +180,15 @@ class TorchBackend(SimulatorBackend):
                                      counts_fn=STEP_KERNELS[cfg.delivery][1])
         else:
             impl = functools.partial(driver.run_chunk, cfg)
-        rounds, decision = run_chunked(impl, ids, chunk, self.device)
+        # The per-config path's trace span (obs/trace.py), named by the
+        # run's census key (obs/programs.py::config_label): the roofline
+        # join (tools/programs.py) matches it against the census.
+        with _trace.span("backend.run", backend=self.name, kernel=kernel, n=cfg.n,
+                         instances=int(len(ids)), chunk=int(chunk),
+                         dispatches=-(-len(ids) // chunk) if len(ids) else 0) as sp:
+            if _trace.enabled():
+                sp["program"] = _programs.config_label(cfg)
+            rounds, decision = run_chunked(impl, ids, chunk, self.device)
         return SimResult(config=cfg, inst_ids=ids, rounds=rounds, decision=decision)
 
     def run_batch(self, cfgs, inst_ids=None, counters: bool = False):
@@ -230,28 +240,47 @@ class TorchBackend(SimulatorBackend):
         return res, counters_mod.counters_doc(res.config, totals, backend=self.name)
 
     def run_with_state(self, cfg: SimConfig, inst_ids: Optional[np.ndarray] = None):
-        """``run`` plus the final per-replica state and the faulty mask:
-        ``(SimResult, state, faulty)``, ``state`` the ``models/state.py``
-        dict of (I, n) numpy arrays and ``faulty`` the (I, n) bool mask, the
-        surface the safety invariants read (``models/invariants.py``). On
-        ``kernel="plain"`` only, like :meth:`run_with_counters`."""
+        """``run`` plus the final per-replica state and the faulty mask of
+        that same run: ``(SimResult, state, faulty)``, ``state`` the
+        ``models/state.py`` dict of (I, n) numpy arrays and ``faulty`` the
+        (I, n) bool mask, the surface the safety invariants read
+        (``models/invariants.py``). On every kernel:
+
+        - ``fused``: the kernel's plane of final state words (its
+          ``state_out``, or the scratch plane past n = 4096), decoded, and
+          the wrapper's faulty plane (``ops/fused_round.py::
+          adversary_planes``; all False under adversary none). Each
+          instance's state is as its CTA left the loop, at its own end;
+        - ``step``: the per-step driver's own state tensors
+          (``models/driver.py::run_chunk_full`` with the kernel's counts
+          function), as on ``plain``: the chunk's loop runs to its last
+          instance's end.
+
+        The two agree on every correct replica; a finished instance's faulty
+        replicas, which run the honest machine, may differ (the invariants
+        read correct replicas only)."""
         return self._run_full(cfg, inst_ids)[:3]
 
     def _run_full(self, cfg: SimConfig, inst_ids, counters: bool = False):
         cfg = cfg.validate()
         kernel = self.kernel_for(cfg)
-        if kernel != "plain":
-            what = "protocol-counter" if counters else "per-replica state"
+        if counters and kernel != "plain":
             raise counters_mod.CountersUnsupported(
-                f"kernel={kernel!r} has no {what} side channel: the CUDA kernel "
-                f"computes delivery and tally in-kernel; run with kernel='plain'")
+                f"kernel={kernel!r} has no protocol-counter side channel: the CUDA "
+                f"kernel computes delivery and tally in-kernel; run with kernel='plain'")
         self.check_supported(cfg)
         ids = self._resolve_inst_ids(cfg, inst_ids)
+        self.prepare(cfg)
         chunk = min(self.chunk_size(cfg), max(1, len(ids)))
         parts = []
         for lo in range(0, len(ids), chunk):
             cids = torch.as_tensor(ids[lo:lo + chunk], dtype=torch.int32).to(self.device)
-            out = driver.run_chunk_full(cfg, cids, counters=counters)
+            if kernel == "fused":
+                out = self._fused_full(cfg, cids)
+            else:
+                counts_fn = STEP_KERNELS[cfg.delivery][1] if kernel == "step" else None
+                out = driver.run_chunk_full(cfg, cids, counts_fn=counts_fn,
+                                            counters=counters)
             parts.append({k: v for k, v in out.items() if v is not None})
         if not parts:
             parts = [{"rounds": torch.empty(0, dtype=torch.int32),
@@ -270,3 +299,16 @@ class TorchBackend(SimulatorBackend):
         state = {k: cat(lambda p: p["state"][k]) for k in parts[0]["state"]}
         rows = cat(lambda p: p["counters"]) if counters else None
         return res, state, cat(lambda p: p["faulty"]), rows
+
+    @staticmethod
+    def _fused_full(cfg: SimConfig, cids: torch.Tensor) -> dict:
+        """One chunk through the fused kernel with its state plane: the
+        run's outcome in :func:`models.driver.run_chunk_full`'s shape."""
+        key = prf.seed_key(cfg.seed)
+        planes = fused_round.operand_planes(cfg, cids, key)
+        rounds, decision, words = fused_round.run_chunk(cfg, cids, key, planes=planes,
+                                                        state=True)
+        faulty = (torch.zeros(words.shape, dtype=torch.bool, device=words.device)
+                  if planes[0] is None else planes[0].bool())
+        return {"rounds": rounds, "decision": decision,
+                "state": fused_round.decode_state(words), "faulty": faulty}

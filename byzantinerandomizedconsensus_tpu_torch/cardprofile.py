@@ -1,6 +1,8 @@
 """Where the time of a run goes on the card: a ``torch.profiler`` trace of
 runs through the torch backend, reduced to the device's busy share of the
-runs' window and its time by kernel name (``cli trace``)."""
+runs' window and its time by kernel name (``cli profile``). ``cli trace``
+is the reference's telemetry tool (``tools/trace.py``), over the host-side
+spans of ``obs/trace.py``."""
 
 from __future__ import annotations
 

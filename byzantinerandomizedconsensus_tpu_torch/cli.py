@@ -9,8 +9,17 @@
   shard row runs as lanes of the lane runner (``--kernel plain``);
 - ``bitmatch``: a backend against an arbiter (``cpu``, the object oracle, or
   ``native``, the C++ core), per instance on sampled ids;
-- ``product``: the five benchmark configurations as shipped, in one JSON;
-- ``trace``: where each configuration's time goes on the card;
+- ``product``: the five benchmark configurations as shipped, in the
+  reference's product record (``tools/product.py``; its options pass
+  through);
+- ``profile``: where each configuration's time goes on the card, from a
+  ``torch.profiler`` trace (``cardprofile.py``);
+- ``trace``: the consumers of the host-side telemetry (``tools/trace.py``;
+  its options pass through): ``export --chrome``, ``summary``, ``follow``
+  and the ``overhead`` A/B;
+- ``programs``: the consumers of the kernel census (``tools/programs.py``;
+  its options pass through): ``dump``, ``diff``, ``roofline`` and the
+  ``census`` A/B;
 - ``serve``: the always-on consensus service over HTTP
   (``serve/server.py``; its options pass through): one kernel run per
   request on the card, or the compacted lane grid with ``--kernel plain``;
@@ -46,8 +55,10 @@ Everything runs on the card unless ``--device cpu`` is given.
     python -m byzantinerandomizedconsensus_tpu_torch.cli bitmatch --protocol bracha \
         -n 16 -f 5 --instances 64 --samples 24 --arbiter cpu
     python -m byzantinerandomizedconsensus_tpu_torch.cli product --out product.json
-    python -m byzantinerandomizedconsensus_tpu_torch.cli trace \
+    python -m byzantinerandomizedconsensus_tpu_torch.cli profile \
         --configs config3 config5@1024 config5@512/keys
+    python -m byzantinerandomizedconsensus_tpu_torch.cli trace overhead --configs 40
+    python -m byzantinerandomizedconsensus_tpu_torch.cli programs census --configs 40
     python -m byzantinerandomizedconsensus_tpu_torch.cli serve --port 8787 --wal wal_dir
     python -m byzantinerandomizedconsensus_tpu_torch.cli serve --device cpu \
         --policy width=8,segment=1
@@ -68,23 +79,18 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-
 from byzantinerandomizedconsensus_tpu_torch.backends import get_backend
 from byzantinerandomizedconsensus_tpu_torch.backends.torch_backend import KERNELS
 from byzantinerandomizedconsensus_tpu_torch.config import (
     DELIVERY_KINDS, FAULT_KINDS, PRESETS, PRODUCT_DELIVERY, SWEEP_INSTANCES, SWEEP_NS,
-    SWEEP_NS_EXTENDED, SWEEP_POINT_N, SimConfig, committee_point, preset, sweep_point)
+    SWEEP_NS_EXTENDED, SimConfig, committee_point, preset, sweep_point)
 from byzantinerandomizedconsensus_tpu_torch.core.simulator import Simulator
 from byzantinerandomizedconsensus_tpu_torch.obs import counters
 from byzantinerandomizedconsensus_tpu_torch.tools.acceptance import compare_results, sample_ids
+from byzantinerandomizedconsensus_tpu_torch.tools.product import CONFIGS as PRODUCT_CONFIGS  # noqa: F401  (the product's configurations, read by the tests)
 from byzantinerandomizedconsensus_tpu_torch.utils import multiseed, sweep
 from byzantinerandomizedconsensus_tpu_torch.utils.metrics import (  # noqa: F401  (the run summary's helpers, read by chip_smoke.py and the tests)
     decision_histogram, round_histogram, summary)
-
-#: The configurations of ``product``: the four presets and config 5's sweep
-#: point, each as shipped.
-PRODUCT_CONFIGS = (*PRESETS, "config5")
 
 
 def _add_override_args(p: argparse.ArgumentParser) -> None:
@@ -346,15 +352,15 @@ def named_config(name: str):
     return dataclasses.replace(cfg, faults=kind).validate() if kind else cfg.validate()
 
 
-def cmd_trace(args) -> int:
+def cmd_profile(args) -> int:
     """Each configuration through the torch backend on the card under
     ``torch.profiler``: one JSON line each with the device's busy share of
     the traced runs' window, its time by kernel name and the runs' host
     times, after a line with the card's name and power limit."""
-    from byzantinerandomizedconsensus_tpu_torch import trace
+    from byzantinerandomizedconsensus_tpu_torch import cardprofile
 
     backend = get_backend("torch", kernel=args.kernel)
-    card = trace.card_line()
+    card = cardprofile.card_line()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = pathlib.Path(args.out_dir or tmp)
@@ -367,42 +373,10 @@ def cmd_trace(args) -> int:
                    "delivery": cfg.delivery, "faults": cfg.faults, "n": cfg.n,
                    "instances": cfg.instances,
                    "kernel": backend.kernel_for(cfg), "runs": args.runs,
-                   **trace.trace_runs(backend, cfg, args.runs, path), "card": card}
+                   **cardprofile.trace_runs(backend, cfg, args.runs, path), "card": card}
             if args.out_dir:
                 out["trace_file"] = str(path)
             print(json.dumps(out), flush=True)
-    return 0
-
-
-def cmd_product(args) -> int:
-    """Each configuration as shipped (every instance, its own round cap and
-    delivery law): one warm-up run, then the best of ``--repeats`` timed
-    runs, with every wall and both histograms. One JSON object, keyed by
-    configuration, on stdout and in ``--out`` if given."""
-    backend = get_backend("torch", device=args.device, kernel=args.kernel)
-    out = {"description": "The five benchmark configurations as shipped, through the "
-                          "torch backend: per configuration the run summary, the best "
-                          "of the timed walls and the full round and decision "
-                          "histograms"}
-    for name in args.configs:
-        cfg = sweep_point(SWEEP_POINT_N) if name == "config5" else preset(name)
-        backend.prepare(cfg)
-        backend.run(cfg)  # warm-up
-        runs = [backend.timed_run(cfg) for _ in range(args.repeats)]
-        res = min(runs, key=lambda r: r.wall_s)
-        if any(not (np.array_equal(r.rounds, res.rounds)
-                    and np.array_equal(r.decision, res.decision)) for r in runs):
-            raise RuntimeError(f"{name}: repeated runs differ")
-        entry = summary(res)
-        entry.update(_device_fields(backend), kernel=backend.kernel_for(cfg),
-                     walls_s=[r.wall_s for r in runs],
-                     round_histogram=round_histogram(res).tolist())
-        out[name] = entry
-    text = json.dumps(out)
-    if args.out:
-        with open(args.out, "w") as fh:
-            fh.write(text + "\n")
-    print(text)
     return 0
 
 
@@ -468,19 +442,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(backends/batch.py; needs --kernel plain)")
     _add_device_args(sw, BACKEND_HELP)
     sw.set_defaults(fn=cmd_sweep)
-    prod = sub.add_parser("product", help="the five benchmark configurations as "
-                          "shipped, timed, with histograms, in one JSON")
-    prod.add_argument("--configs", nargs="+", choices=PRODUCT_CONFIGS,
-                      default=list(PRODUCT_CONFIGS), help="a subset to run")
-    prod.add_argument("--repeats", type=int, default=5,
-                      help="timed runs after the warm-up (default 5)")
-    prod.add_argument("--device", default="cuda",
-                      help="cuda (default; raises with no card) or cpu")
-    prod.add_argument("--kernel", choices=KERNELS, default=None,
-                      help="as for run (default: fused on cuda)")
-    prod.add_argument("--out", default=None, help="also write the JSON here")
-    prod.set_defaults(fn=cmd_product)
-    tr = sub.add_parser("trace", help="where each configuration's time goes on the "
+    tr = sub.add_parser("profile", help="where each configuration's time goes on the "
                         "card: a torch.profiler trace of runs")
     tr.add_argument("--configs", nargs="+",
                     default=["config1", "config2", "config3", "config4", "config5@512",
@@ -494,7 +456,19 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--kernel", choices=KERNELS, default=None, help="as for run")
     tr.add_argument("--out-dir", default=None,
                     help="keep the Chrome traces here (default: not kept)")
-    tr.set_defaults(fn=cmd_trace)
+    tr.set_defaults(fn=cmd_profile)
+    sub.add_parser("product", add_help=False,
+                   help="the five benchmark configurations as shipped, timed, with "
+                        "histograms, in the product record (tools/product.py; every "
+                        "further option passes through): --out, --configs, "
+                        "--counters, --repeats, --device, --kernel")
+    sub.add_parser("trace", add_help=False,
+                   help="the host-side telemetry consumers (tools/trace.py; every "
+                        "further option passes through): export --chrome, summary, "
+                        "follow, overhead")
+    sub.add_parser("programs", add_help=False,
+                   help="the kernel census consumers (tools/programs.py; every "
+                        "further option passes through): dump, diff, roofline, census")
     sub.add_parser("loadgen", add_help=False,
                    help="the seeded open-loop load generator over the server "
                         "or a fleet (tools/loadgen.py; every further option "
@@ -541,6 +515,18 @@ def main(argv=None) -> int:
         from byzantinerandomizedconsensus_tpu_torch.hunt import hunter
 
         return hunter.main(argv[1:])
+    if argv and argv[0] == "product":
+        from byzantinerandomizedconsensus_tpu_torch.tools import product
+
+        return product.main(argv[1:])
+    if argv and argv[0] == "trace":
+        from byzantinerandomizedconsensus_tpu_torch.tools import trace
+
+        return trace.main(argv[1:])
+    if argv and argv[0] == "programs":
+        from byzantinerandomizedconsensus_tpu_torch.tools import programs
+
+        return programs.main(argv[1:])
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -18,8 +18,9 @@
 // thread runs its own urn2 chain of K = min(m, L-m, D) draws; the torch plain
 // version runs all lanes to the batch maximum of K with lanes masked, which
 // draws the same bits. Each CTA leaves its round loop as soon as its correct
-// replicas have decided. Only rounds (int32) and decision (uint8) are
-// written, one of each per instance.
+// replicas have decided. Rounds (int32) and decision (uint8) are written,
+// one of each per instance, and, where the caller passes a state_out plane,
+// each replica's final state word, once, after the loop.
 //
 // Adversaries. The host computes the sort-backed static selections once
 // (models/adversaries.py::AdversaryModel.setup): a (B, n) faulty plane, and
@@ -172,7 +173,8 @@ fused_round_kernel(const int32_t* __restrict__ inst_ids,
                    const uint8_t* __restrict__ faulty_plane,
                    const int32_t* __restrict__ crash_plane, FaultPlanes fp,
                    int32_t* __restrict__ rounds_out,
-                   uint8_t* __restrict__ decision_out, brc::Params p) {
+                   uint8_t* __restrict__ decision_out, uint32_t* __restrict__ state_out,
+                   brc::Params p) {
   constexpr bool kLying = ADV == fz::kByzantine || ADV == fz::kAdaptive ||
                           ADV == fz::kAdaptiveMin;
   const int b = blockIdx.x;
@@ -287,6 +289,7 @@ fused_round_kernel(const int32_t* __restrict__ inst_ids,
     rounds_out[b] = done_at >= 0 ? done_at : p.round_cap;
     decision_out[b] = done_at >= 0 ? (uint8_t)brc::word_decided_val(word) : (uint8_t)2;
   }
+  if (state_out != nullptr && active) state_out[at] = word;
 }
 
 struct Launch {
@@ -298,13 +301,14 @@ struct Launch {
   FaultPlanes fp;
   int32_t* rounds;
   uint8_t* decision;
+  uint32_t* state;
   brc::Params p;
 };
 
 template <int PROTO, int ADV, int FAULT>
 void launch(const Launch& l) {
   fused_round_kernel<PROTO, ADV, FAULT><<<l.B, l.threads, 0, l.stream>>>(
-      l.inst_ids, l.faulty, l.crash_round, l.fp, l.rounds, l.decision, l.p);
+      l.inst_ids, l.faulty, l.crash_round, l.fp, l.rounds, l.decision, l.state, l.p);
 }
 
 template <int PROTO, int ADV>
@@ -339,7 +343,8 @@ bool launch_adversary(int adversary, int fault, const Launch& l) {
 // other adversary's faulty plane is the fault-prone set),
 // down_at and up_at (B, n) int32 under recover, side (B, n) uint8 and
 // part_start, part_heal (B,) int32 under partition; rounds (B,) int32,
-// decision (B,) uint8. protocol: 0 benor, 1 bracha; adversary: 0 none,
+// decision (B,) uint8; state (B, n) uint32, the final state words, or null
+// for none. protocol: 0 benor, 1 bracha; adversary: 0 none,
 // 1 crash, 2 byzantine, 3 adaptive, 4 adaptive_min; fault: 0 none,
 // 1 recover, 2 partition, 3 omission. Returns cudaGetLastError() after the
 // launch (0 on success).
@@ -348,7 +353,7 @@ extern "C" int brc_fused_round_launch(const int32_t* inst_ids, const uint8_t* fa
                                       const int32_t* down_at, const int32_t* up_at,
                                       const uint8_t* side, const int32_t* part_start,
                                       const int32_t* part_heal, int32_t* rounds,
-                                      uint8_t* decision, int B, int n, int f,
+                                      uint8_t* decision, uint32_t* state, int B, int n, int f,
                                       int round_cap, int init_code, int coin_code,
                                       int protocol, int adversary, int fault,
                                       uint32_t k0, uint32_t k1, void* stream) {
@@ -365,7 +370,8 @@ extern "C" int brc_fused_round_launch(const int32_t* inst_ids, const uint8_t* fa
     return (int)cudaErrorInvalidValue;
   const Launch l{B, (n + 31) / 32 * 32, (cudaStream_t)stream, inst_ids, faulty,
                  crash_round, FaultPlanes{fprone, down_at, up_at, side, part_start, part_heal},
-                 rounds, decision, brc::Params{k0, k1, n, f, round_cap, init_code, coin_code}};
+                 rounds, decision, state,
+                 brc::Params{k0, k1, n, f, round_cap, init_code, coin_code}};
   bool ok;
   if (protocol == fz::kBracha)
     ok = launch_adversary<fz::kBracha>(adversary, fault, l);

@@ -41,6 +41,11 @@ BRC_HD uint32_t word_est(uint32_t w) { return w & 3u; }
 BRC_HD uint32_t word_decided(uint32_t w) { return (w >> 2) & 1u; }
 BRC_HD uint32_t word_decided_val(uint32_t w) { return (w >> 3) & 3u; }
 BRC_HD uint32_t word_phase(uint32_t w) { return w >> 8; }
+// The word with only those fields: the wide kernel keeps a step's honest
+// value (bits 5-6) and committee membership (bit 7) in it between steps.
+// The state_out plane holds these words.
+constexpr uint32_t kStateWordMask = 0xFFFFFF1Fu;
+BRC_HD uint32_t state_word(uint32_t w) { return w & kStateWordMask; }
 
 BRC_HD int min3(int a, int b, int c) {
   const int ab = a < b ? a : b;

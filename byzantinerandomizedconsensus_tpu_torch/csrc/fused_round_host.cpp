@@ -6,7 +6,9 @@
 // brc_host_fused_round runs the kernel's round loop for one instance at a
 // time, for every (protocol, adversary, fault schedule) instantiation, with
 // the block reductions written as loops over the replicas. It calls the same
-// functions between the reductions as fused_round.cu does, in the same order.
+// functions between the reductions as fused_round.cu does, in the same order,
+// and writes the final state words where `state` is non-null, as the
+// kernel's state_out plane.
 #include <stddef.h>
 #include <stdint.h>
 
@@ -132,7 +134,7 @@ struct HostFaultPlanes {
 template <int PROTO, int ADV, int FAULT>
 void host_run(const brc::Params& p, const int32_t* inst_ids, const uint8_t* faulty_plane,
               const int32_t* crash_plane, const HostFaultPlanes& fp, int32_t* rounds,
-              uint8_t* decision, int B) {
+              uint8_t* decision, uint32_t* state, int B) {
   constexpr bool kLying = ADV == fz::kByzantine || ADV == fz::kAdaptive ||
                           ADV == fz::kAdaptiveMin;
   const int n = p.n;
@@ -223,18 +225,20 @@ void host_run(const brc::Params& p, const int32_t* inst_ids, const uint8_t* faul
     while (faulty[first]) ++first;
     rounds[b] = done_at >= 0 ? done_at : p.round_cap;
     decision[b] = done_at >= 0 ? (uint8_t)brc::word_decided_val(word[first]) : 2;
+    if (state != nullptr)
+      for (int v = 0; v < n; ++v) state[(size_t)b * n + v] = word[v];
   }
 }
 
 template <int PROTO, int ADV>
 void host_run_fault(int fault, const brc::Params& p, const int32_t* inst_ids,
                     const uint8_t* faulty, const int32_t* crash_round,
-                    const HostFaultPlanes& fp, int32_t* rounds, uint8_t* decision, int B) {
+                    const HostFaultPlanes& fp, int32_t* rounds, uint8_t* decision, uint32_t* state, int B) {
   switch (fault) {
-    case fz::kNone: host_run<PROTO, ADV, fz::kNone>(p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kRecover: host_run<PROTO, ADV, fz::kRecover>(p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kPartition: host_run<PROTO, ADV, fz::kPartition>(p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kOmission: host_run<PROTO, ADV, fz::kOmission>(p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
+    case fz::kNone: host_run<PROTO, ADV, fz::kNone>(p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kRecover: host_run<PROTO, ADV, fz::kRecover>(p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kPartition: host_run<PROTO, ADV, fz::kPartition>(p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kOmission: host_run<PROTO, ADV, fz::kOmission>(p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
   }
 }
 
@@ -242,13 +246,13 @@ template <int PROTO>
 void host_run_adversary(int adversary, int fault, const brc::Params& p,
                         const int32_t* inst_ids, const uint8_t* faulty,
                         const int32_t* crash_round, const HostFaultPlanes& fp,
-                        int32_t* rounds, uint8_t* decision, int B) {
+                        int32_t* rounds, uint8_t* decision, uint32_t* state, int B) {
   switch (adversary) {
-    case fz::kNone: host_run_fault<PROTO, fz::kNone>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kCrash: host_run_fault<PROTO, fz::kCrash>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kByzantine: host_run_fault<PROTO, fz::kByzantine>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kAdaptive: host_run_fault<PROTO, fz::kAdaptive>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
-    case fz::kAdaptiveMin: host_run_fault<PROTO, fz::kAdaptiveMin>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, B); break;
+    case fz::kNone: host_run_fault<PROTO, fz::kNone>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kCrash: host_run_fault<PROTO, fz::kCrash>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kByzantine: host_run_fault<PROTO, fz::kByzantine>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kAdaptive: host_run_fault<PROTO, fz::kAdaptive>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
+    case fz::kAdaptiveMin: host_run_fault<PROTO, fz::kAdaptiveMin>(fault, p, inst_ids, faulty, crash_round, fp, rounds, decision, state, B); break;
   }
 }
 
@@ -356,17 +360,18 @@ void brc_host_fused_round(const int32_t* inst_ids, const uint8_t* faulty,
                           const int32_t* down_at, const int32_t* up_at,
                           const uint8_t* side, const int32_t* part_start,
                           const int32_t* part_heal, int32_t* rounds,
-                          uint8_t* decision, int B, int n, int f, int round_cap,
+                          uint8_t* decision, uint32_t* state, int B, int n, int f,
+                          int round_cap,
                           int init_code, int coin_code, int protocol, int adversary,
                           int fault, uint32_t k0, uint32_t k1) {
   const brc::Params p{k0, k1, n, f, round_cap, init_code, coin_code};
   const HostFaultPlanes fp{fprone, down_at, up_at, side, part_start, part_heal};
   if (protocol == fz::kBracha)
     host_run_adversary<fz::kBracha>(adversary, fault, p, inst_ids, faulty, crash_round, fp,
-                                    rounds, decision, B);
+                                    rounds, decision, state, B);
   else
     host_run_adversary<fz::kBenOr>(adversary, fault, p, inst_ids, faulty, crash_round, fp,
-                                   rounds, decision, B);
+                                   rounds, decision, state, B);
 }
 
 }  // extern "C"

@@ -38,7 +38,11 @@
 //
 // The state word is prf.FUSED_STATE_BITS plus, between the steps of a
 // round, the replica's honest value of the step in bits 5-6 and its
-// committee membership in bit 7.
+// committee membership in bit 7. Where the caller asks for the final state,
+// layouts R = 1 and R = 4 write each replica's word (brc::state_word, those
+// bits cleared) once after the loop to a (B, n) state_out plane; under R = 0
+// the scratch plane already holds the words, and the wrapper reads them
+// there.
 //
 // Bound. Integer issue, as fused_round.cu: a threefry word is about 72
 // integer operations, a cheap-law segment about 12, a chain draw about 9.
@@ -310,7 +314,8 @@ template <int PROTO, int ADV, int FAULT, int LAW, int R>
 __global__ void __launch_bounds__(1024)
 fused_round_wide_kernel(const int32_t* __restrict__ inst_ids, Planes pl,
                         uint32_t* __restrict__ scratch, int32_t* __restrict__ rounds_out,
-                        uint8_t* __restrict__ decision_out, Params p) {
+                        uint8_t* __restrict__ decision_out, uint32_t* __restrict__ state_out,
+                        Params p) {
   constexpr int PACK = kLayoutPack<R>;
   using W = Wide<PROTO, ADV, FAULT, LAW, PACK>;
   const int b = blockIdx.x;
@@ -427,6 +432,10 @@ fused_round_wide_kernel(const int32_t* __restrict__ inst_ids, Planes pl,
     rounds_out[b] = done_at >= 0 ? done_at : p.round_cap;
     decision_out[b] = done_at >= 0 ? (uint8_t)word_decided_val(word(k)) : (uint8_t)2;
   });
+  if constexpr (R > 0) {
+    if (state_out != nullptr)
+      each([&](int k, uint32_t v) { state_out[row + v] = state_word(word(k)); });
+  }
 }
 
 // Host side of one (LAW, R) library: the launch of every (protocol,
@@ -439,13 +448,14 @@ struct WideLaunch {
   uint32_t* scratch;
   int32_t* rounds;
   uint8_t* decision;
+  uint32_t* state;
   Params p;
 };
 
 template <int PROTO, int ADV, int FAULT, int LAW, int R>
 void wide_launch(const WideLaunch& l) {
   fused_round_wide_kernel<PROTO, ADV, FAULT, LAW, R><<<l.B, l.threads, 0, l.stream>>>(
-      l.inst_ids, l.pl, l.scratch, l.rounds, l.decision, l.p);
+      l.inst_ids, l.pl, l.scratch, l.rounds, l.decision, l.state, l.p);
 }
 
 template <int PROTO, int ADV, int LAW, int R>
@@ -483,8 +493,8 @@ constexpr int kLayoutMaxN = R == 1 ? 1024 : (R == 0 ? (1 << 20) : 4096);
 // cudaGetLastError() (0 on success).
 template <int LAW, int R>
 int wide_entry(const int32_t* inst_ids, const Planes& pl, uint32_t* scratch, int32_t* rounds,
-               uint8_t* decision, int B, const Params& p, int protocol, int adversary,
-               int fault, void* stream) {
+               uint8_t* decision, uint32_t* state, int B, const Params& p, int protocol,
+               int adversary, int fault, void* stream) {
   if (B <= 0) return 0;
   if (p.n < kLayoutMinN<R> || p.n > kLayoutMaxN<R>) return (int)cudaErrorInvalidValue;
   if (R == 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -500,7 +510,7 @@ int wide_entry(const int32_t* inst_ids, const Planes& pl, uint32_t* scratch, int
   const int per_thread = R > 0 ? (p.n + R - 1) / R : 1024;
   const int threads = R > 0 ? (per_thread + 31) / 32 * 32 : 1024;
   const WideLaunch l{B, threads, (cudaStream_t)stream, inst_ids, pl, scratch, rounds, decision,
-                     p};
+                     state, p};
   bool ok;
   if (protocol == fused::kBracha)
     ok = wide_launch_adversary<fused::kBracha, LAW, R>(adversary, fault, l);
@@ -517,22 +527,25 @@ int wide_entry(const int32_t* inst_ids, const Planes& pl, uint32_t* scratch, int
 // One (LAW, R) library's C entry, brc_fused_round_wide_launch: inst_ids (B,)
 // int32; the planes as brc::Planes (null where the config has none);
 // scratch (B, n) uint32 under R = 0, else null; rounds (B,) int32, decision
-// (B,) uint8; the config's (n, f), round cap, init and coin codes, threshold
-// (nq, fq), committee quota kq and size csize; protocol, adversary and fault
-// codes as fused_round.cu's; the PRF key; the stream.
+// (B,) uint8; state (B, n) uint32 for the final state words under R = 1 and
+// R = 4, or null (under R = 0 they are the scratch plane's); the config's
+// (n, f), round cap, init and coin codes, threshold (nq, fq), committee
+// quota kq and size csize; protocol, adversary and fault codes as
+// fused_round.cu's; the PRF key; the stream.
 #define BRC_WIDE_ENTRY(LAW, R)                                                              \
   extern "C" int brc_fused_round_wide_launch(                                               \
       const int32_t* inst_ids, const uint8_t* faulty, const int32_t* crash_round,           \
       const uint8_t* fprone, const int32_t* down_at, const int32_t* up_at,                  \
       const uint8_t* side, const int32_t* part_start, const int32_t* part_heal,             \
-      uint32_t* scratch, int32_t* rounds, uint8_t* decision, int B, int n, int f,           \
-      int round_cap, int init_code, int coin_code, int nq, int fq, int kq, int csize,       \
+      uint32_t* scratch, int32_t* rounds, uint8_t* decision, uint32_t* state, int B, int n, \
+      int f, int round_cap, int init_code, int coin_code, int nq, int fq, int kq,          \
+      int csize,                                                                            \
       int protocol, int adversary, int fault, uint32_t k0, uint32_t k1, void* stream) {     \
     const brc::Planes pl{faulty, crash_round, fprone, down_at, up_at, side, part_start,    \
                          part_heal};                                                        \
     const brc::Params p{k0, k1, n, f, round_cap, init_code, coin_code, nq, fq, kq, csize}; \
-    return brc::wide_entry<LAW, R>(inst_ids, pl, scratch, rounds, decision, B, p, protocol, \
-                                   adversary, fault, stream);                               \
+    return brc::wide_entry<LAW, R>(inst_ids, pl, scratch, rounds, decision, state, B, p,    \
+                                   protocol, adversary, fault, stream);                     \
   }
 
 #endif  // __CUDACC__

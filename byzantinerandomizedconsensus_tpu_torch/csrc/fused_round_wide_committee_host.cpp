@@ -5,7 +5,7 @@
 #define BRC_RUN(LAW, PACK)                                                                 \
   if (law == fz::LAW && pack == PACK) {                                                    \
     host_wide_run<fz::LAW, PACK>(protocol, adversary, fault, p, inst_ids, pl, rounds,     \
-                                 decision, B);                                             \
+                                 decision, state, B);                                      \
     return 0;                                                                              \
   }
 

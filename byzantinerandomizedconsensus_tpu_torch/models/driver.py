@@ -38,7 +38,7 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=None)
 
 
 def run_chunk_full(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=None,
-                   counters: bool = False) -> dict:
+                   counters: bool = False, freeze: bool = False) -> dict:
     """:func:`run_chunk` with the whole outcome: ``rounds``, ``decision``,
     the final (B, n) ``state`` dict and ``faulty`` mask, and with
     ``counters`` the (B, C) int64 protocol-counter rows
@@ -46,7 +46,14 @@ def run_chunk_full(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=
     ``done_at < 0`` mask that gates the state. The counters are a side
     output the round math never reads; the per-step kernels have none, so
     ``counters`` with a ``counts_fn`` raises
-    :class:`~obs.counters.CountersUnsupported`."""
+    :class:`~obs.counters.CountersUnsupported`.
+
+    The loop runs the whole chunk until its last instance ends, so a
+    finished instance's faulty replicas, which run the honest machine, go
+    on changing their state, as in the reference's numpy driver. With
+    ``freeze`` each instance's state stays as its last round left it: the
+    state the fused kernel's CTA holds when it leaves its loop. Correct
+    replicas are frozen either way (all of them have decided)."""
     seed = cfg.seed if key is None else prf.seed_key(key)
     if counters and counts_fn is not None:
         raise counters_mod.CountersUnsupported(
@@ -65,8 +72,10 @@ def run_chunk_full(cfg, inst_ids: torch.Tensor, key=None, counts_fn=None, stats=
         running = done_at < 0
         round_stats = {} if stats is not None else None
         obs = {} if counters else None
-        st = round_body(cfg, seed, inst_ids, r, st, adv, setup,
-                        counts_fn=counts_fn, stats=round_stats, obs=obs)
+        new = round_body(cfg, seed, inst_ids, r, st, adv, setup,
+                         counts_fn=counts_fn, stats=round_stats, obs=obs)
+        st = ({k: torch.where(running[:, None], new[k], st[k]) for k in new}
+              if freeze else new)
         if stats is not None:
             round_stats["instance_rounds"] = torch.ones_like(running, dtype=torch.int64)
             for k, v in round_stats.items():

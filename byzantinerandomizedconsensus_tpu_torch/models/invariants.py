@@ -24,44 +24,60 @@ import torch
 from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 
 
-def state_violations(cfg, state, faulty, res=None, inst_ids=None) -> list:
+def state_violations(cfg, state, faulty, res=None, inst_ids=None, device="cpu") -> list:
     """Violation records over a (B, n) state dict of numpy arrays; empty =
     safe. ``faulty`` is the adversary's (B, n) mask (spec §3.2): a replica
     silenced only by a §9 fault schedule is correct and bound by Agreement
     and Validity. ``res``, when given, adds the decision-consistency check
-    against its (B,) arrays."""
-    decided = np.asarray(state["decided"])
+    against its (B,) arrays.
+
+    The reference's records, in its order (by instance: agreement,
+    validity, decision consistency), from whole-array predicates over B:
+    only the instances that break one are visited one by one. The initial
+    estimates (the validity basis) are drawn on ``device``."""
+    decided = np.asarray(state["decided"], dtype=bool)
     dval = np.asarray(state["decided_val"])
-    correct = ~np.asarray(faulty)
+    correct = ~np.asarray(faulty, dtype=bool)
     B = decided.shape[0]
     if inst_ids is None:
         inst_ids = np.arange(B)
-    ids = torch.as_tensor(np.asarray(inst_ids, dtype=np.int64))
-    est0 = state_mod.init_est(cfg, cfg.seed, ids).numpy()
+    ids = torch.as_tensor(np.asarray(inst_ids, dtype=np.int64), device=device)
+    est0 = state_mod.init_est(cfg, cfg.seed, ids).cpu().numpy()
+
+    cd = correct & decided
+    values = np.unique(dval[cd])
+    held = np.stack([(cd & (dval == v)).any(axis=1) for v in values], axis=1) \
+        if len(values) else np.zeros((B, 0), dtype=bool)
+    agreement = held.sum(axis=1) > 1
+    # Validity: the basis is every replica, or the correct ones under a
+    # lying adversary; unanimous when it is non-empty and holds one value.
+    basis = correct if cfg.lying_adversary else np.ones_like(correct)
+    has0 = (basis & (est0 == 0)).any(axis=1)
+    has1 = (basis & (est0 != 0)).any(axis=1)
+    unanimous = has0 ^ has1
+    init = est0[np.arange(B), np.argmax(basis, axis=1)] if B else est0[:, 0]
+    validity = unanimous & (cd & (dval != init[:, None])).any(axis=1)
+    consistency = np.zeros(B, dtype=bool)
+    if res is not None:
+        done = (cd.sum(axis=1) == correct.sum(axis=1)) & correct.any(axis=1)
+        want = dval[np.arange(B), np.argmax(correct, axis=1)] if B else dval[:, 0]
+        got = np.asarray(res.decision)
+        consistency = done & (np.asarray(res.rounds) < cfg.round_cap) & (got != want)
 
     out = []
-    for i in range(B):
+    for i in np.flatnonzero(agreement | validity | consistency):
         inst = int(inst_ids[i])
-        cd = correct[i] & decided[i]
-        vals = sorted(set(dval[i][cd].tolist()))
-        if len(vals) > 1:
+        vals = [int(v) for v, h in zip(values, held[i]) if h]
+        if agreement[i]:
             out.append({"instance": inst, "kind": "agreement",
                         "decided_values": vals})
-        ce = est0[i][correct[i]] if cfg.lying_adversary else est0[i]
-        if len(ce) and (ce == ce[0]).all():
-            v = int(ce[0])
-            if any(int(x) != v for x in dval[i][cd]):
-                out.append({"instance": inst, "kind": "validity",
-                            "unanimous_init": v,
-                            "decided_values": vals})
-        if res is not None:
-            done = bool(cd.sum() == correct[i].sum() and correct[i].any())
-            want = int(dval[i][np.argmax(correct[i])]) if done \
-                and int(res.rounds[i]) < cfg.round_cap else None
-            got = int(res.decision[i])
-            if want is not None and got != want:
-                out.append({"instance": inst, "kind": "decision_consistency",
-                            "expected": want, "got": got})
+        if validity[i]:
+            out.append({"instance": inst, "kind": "validity",
+                        "unanimous_init": int(init[i]),
+                        "decided_values": vals})
+        if consistency[i]:
+            out.append({"instance": inst, "kind": "decision_consistency",
+                        "expected": int(want[i]), "got": int(got[i])})
     return out
 
 

@@ -292,6 +292,13 @@ def disable() -> None:
     _census = None
 
 
+def install(census: ProgramCensus | None) -> None:
+    """Make ``census`` this process's census, with its entries (None turns
+    the census off): an A/B turns one census off and on again."""
+    global _census
+    _census = census
+
+
 def maybe_enable_from_env() -> ProgramCensus | None:
     """Honor ``BRC_PROGRAMS`` (inherited by fleet workers from the parent
     environment). No-op when unset or ``0``."""

@@ -1,7 +1,8 @@
 """Host-side telemetry — structured trace events.
 
-The port's copy of the reference ``obs/trace.py`` (the port's root-level
-``trace.py``, the ``cli trace`` profiler reduction, is a different thing).
+The port's copy of the reference ``obs/trace.py``; ``tools/trace.py`` (``cli
+trace``) reads what it writes. (``cardprofile.py``, ``cli profile``, is the
+card's ``torch.profiler`` reduction, a different thing.)
 It records monotonic-clock spans (``ph: "X"``: kind, start, duration,
 attrs) and instant events (``ph: "i"``) from the orchestration seams: the
 lane runner's compile cache, batched dispatches, and the compacted grid's

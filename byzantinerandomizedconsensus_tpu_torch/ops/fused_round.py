@@ -18,6 +18,13 @@ Counterpart of the reference ``ops/pallas_round.py`` (the TPU kernel
   ``backends/jax_backend.py::_run_chunk``) on the kernel's surface. It runs
   on any device.
 
+Asked with ``state=True``, both also return the final state: a (B, n) int32
+plane of u32 state words (``prf.FUSED_STATE_BITS``: est, decided,
+decided_val, phase), each instance's as its own loop left it — a CTA leaves
+its loop at its instance's end, so the plain version freezes each instance's
+state there too (``models/driver.py::run_chunk_full(freeze=True)``).
+:func:`decode_state` unpacks the plane.
+
 Both are bit-identical to the reference (tests/test_torch_fused_round.py and
 tests/test_torch_fused_laws.py on the CPU; chip_smoke.py compares the two on
 the card).
@@ -48,6 +55,7 @@ import functools
 import torch
 
 from byzantinerandomizedconsensus_tpu_torch.models import adversaries, driver, faults
+from byzantinerandomizedconsensus_tpu_torch.models import state as state_mod
 from byzantinerandomizedconsensus_tpu_torch.models.committee import quorum_params
 from byzantinerandomizedconsensus_tpu_torch.obs import programs as _programs
 from byzantinerandomizedconsensus_tpu_torch.ops import _build, prf
@@ -122,7 +130,7 @@ def library(cfg) -> str:
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     fn = _build.load(name).brc_fused_round_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -131,10 +139,22 @@ def _launcher(name: str):
 @functools.lru_cache(maxsize=None)
 def _wide_launcher(name: str):
     fn = _build.load(name).brc_fused_round_wide_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+#: The state word's fields (csrc/fused_round.cuh::kStateWordMask, as int32):
+#: the wide kernel's scratch words also carry a step's honest value and the
+#: committee membership between steps, in bits 5-7.
+STATE_WORD_MASK = 0xFFFFFF1F - (1 << 32)
+
+
+def decode_state(words: torch.Tensor) -> dict:
+    """The ``models/state.py`` dict (est, decided, decided_val, phase) of
+    a (B, n) plane of state words."""
+    return state_mod.unpack_state(words.to(torch.int64) & 0xFFFFFFFF)
 
 
 def wide_params(cfg) -> tuple:
@@ -191,8 +211,10 @@ def operand_planes(cfg, inst_ids: torch.Tensor, key):
     return (faulty, crash) + fault_planes(cfg, inst_ids, key, faulty=faulty)
 
 
-def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
-    """Simulate one chunk with the CUDA kernel; returns ``(rounds, decision)``.
+def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None, state: bool = False):
+    """Simulate one chunk with the CUDA kernel; returns ``(rounds, decision)``,
+    with ``state`` ``(rounds, decision, words)``, ``words`` the (B, n) int32
+    plane of final state words.
 
     ``inst_ids`` (B,) int32 on a CUDA device; ``key`` the ``(k0, k1)`` PRF
     key (default: from ``cfg.seed``) — an argument of the kernel, so one
@@ -203,7 +225,7 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
     global launches
     check_fused_supported(cfg)
     if inst_ids.device.type == "cpu":
-        return run_chunk_plain(cfg, inst_ids, key)
+        return run_chunk_plain(cfg, inst_ids, key, state=state)
     if inst_ids.device.type != "cuda":
         raise ValueError(f"run_chunk takes CUDA or CPU tensors, got {inst_ids.device}")
     if inst_ids.dtype != torch.int32 or inst_ids.dim() != 1 \
@@ -213,6 +235,13 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
     B, dev = inst_ids.shape[0], inst_ids.device
     rounds = torch.empty(B, dtype=torch.int32, device=dev)
     decision = torch.empty(B, dtype=torch.uint8, device=dev)
+    # The u32 state words of layout 0, and the state_out plane, as int32
+    # (torch has no uint32 arithmetic to need here). Under layout 0 the
+    # scratch plane holds the final words: no second plane is written.
+    scratch = (torch.empty((B, cfg.n), dtype=torch.int32, device=dev)
+               if layout(cfg) == 0 else None)
+    words = (torch.empty((B, cfg.n), dtype=torch.int32, device=dev)
+             if state and scratch is None else None)
     if planes is None:
         planes = operand_planes(cfg, inst_ids, (k0, k1))
     name = library(cfg)
@@ -222,24 +251,23 @@ def run_chunk(cfg, inst_ids: torch.Tensor, key=None, planes=None):
              _FAULT_CODES[cfg.faults])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        out = None if words is None else words.data_ptr()
         if name == "fused_round":
             rc = _launcher(name)(inst_ids.data_ptr(), *ptrs, rounds.data_ptr(),
-                                 decision.data_ptr(), *head, *codes, k0, k1, stream)
+                                 decision.data_ptr(), out, *head, *codes, k0, k1, stream)
         else:
-            # The u32 state words of layout 0, as int32 (torch has no
-            # uint32 arithmetic to need here).
-            scratch = (torch.empty((B, cfg.n), dtype=torch.int32, device=dev)
-                       if layout(cfg) == 0 else None)
             rc = _wide_launcher(name)(
                 inst_ids.data_ptr(), *ptrs, None if scratch is None else scratch.data_ptr(),
-                rounds.data_ptr(), decision.data_ptr(), *head, *wide_params(cfg), *codes,
-                k0, k1, stream)
+                rounds.data_ptr(), decision.data_ptr(), out, *head, *wide_params(cfg),
+                *codes, k0, k1, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches += 1
     if _programs.enabled():
         _census_launch(cfg, name, B)
-    return rounds, decision
+    if not state:
+        return rounds, decision
+    return rounds, decision, words if words is not None else scratch & STATE_WORD_MASK
 
 
 def _census_launch(cfg, name: str, B: int) -> None:
@@ -261,10 +289,13 @@ def _census_launch(cfg, name: str, B: int) -> None:
                           codes + (None, r), (B,), (threads,))
 
 
-def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
+def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None,
+                    state: bool = False):
     """The plain torch round driver (:func:`models.driver.run_chunk` with
     the delivery law's plain sampler); returns ``(rounds, decision)`` on
-    ``inst_ids.device``.
+    ``inst_ids.device``, with ``state`` ``(rounds, decision, words)``, the
+    kernel's plane of final state words: each instance's state frozen at
+    its own end, as the kernel's CTA leaves its loop there.
 
     ``stats``, when a dict, receives the work the run needed, counted over
     the instances still running in each round: ``instance_rounds``,
@@ -280,4 +311,8 @@ def run_chunk_plain(cfg, inst_ids: torch.Tensor, key=None, stats=None):
     burst gate's and the bits' PRF words) — the inputs of the kernel's bound.
     """
     check_fused_supported(cfg)
-    return driver.run_chunk(cfg, inst_ids, key, stats=stats)
+    if not state:
+        return driver.run_chunk(cfg, inst_ids, key, stats=stats)
+    out = driver.run_chunk_full(cfg, inst_ids, key, stats=stats, freeze=True)
+    words = state_mod.pack_state(out["state"]).to(torch.int32)
+    return out["rounds"], out["decision"], words

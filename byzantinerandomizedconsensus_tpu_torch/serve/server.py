@@ -85,7 +85,7 @@ class ServeRequest:
     __slots__ = ("id", "cfg", "bucket", "t_submit", "t_dispatch", "t_reply",
                  "result", "record", "error", "done", "check_invariants",
                  "tenant", "deadline_ms", "priority", "t_deadline",
-                 "cancelled", "session_slots", "slot_results")
+                 "cancelled", "session_slots", "slot_results", "served_state")
 
     def __init__(self, rid: str, cfg, bucket, check_invariants: bool = False,
                  tenant: str = _admission.DEFAULT_TENANT,
@@ -103,6 +103,9 @@ class ServeRequest:
         # opt-in safety checking at retirement: the
         # reply record carries an Agreement/Validity verdict summary
         self.check_invariants = bool(check_invariants)
+        # the direct leg's checked run: (result, state, faulty) of the run
+        # that answered, which the check reads (None on the lane leg)
+        self.served_state = None
         # envelope: scheduling hints only — none of these enter
         # the PRF draws or the bucket key, so replies stay bit-identical
         self.tenant = tenant
@@ -849,7 +852,12 @@ class ConsensusServer:
         its own request; the grid keeps draining.
         Cancels that land while an item is queued were already stripped by
         ``WorkFeed.cancel``; a cancel that races the run itself is dropped
-        at :meth:`_retire` (the reply is discarded, as on the lane path)."""
+        at :meth:`_retire` (the reply is discarded, as on the lane path).
+        A request with ``check_invariants`` runs its config once, through
+        ``backend.run_with_state``: the reply's check reads that run's own
+        final state, and the config is not run a second time (a backend
+        without that method, an arbiter or the mesh, is checked as the lane
+        leg is)."""
         from byzantinerandomizedconsensus_tpu_torch.models import (
             session as _session_mod)
 
@@ -863,9 +871,15 @@ class ConsensusServer:
                 slot_cfg = cfg
                 try:
                     for k in range(slots):
+                        checked = (k == 0 and token is not None and token.check_invariants
+                                   and hasattr(self._backend, "run_with_state"))
                         run = _programs.instrument(
-                            _programs.config_label(slot_cfg), self._backend.run)
+                            _programs.config_label(slot_cfg),
+                            self._backend.run_with_state if checked else self._backend.run)
                         result = run(slot_cfg, inst_ids=ids)
+                        if checked:
+                            token.served_state = result
+                            result = result[0]
                         if token is not None:
                             self._retire(token, result)
                         if k + 1 < slots:
@@ -986,18 +1000,29 @@ class ConsensusServer:
                               for r in req.slot_results],
             }
         if req.check_invariants:
-            doc["invariants"] = self._invariant_summary(req.cfg)
+            doc["invariants"] = self._invariant_summary(req.cfg, req.served_state)
         return doc
 
-    def _invariant_summary(self, cfg) -> dict:
-        """The opt-in reply safety block: re-run the config on the
-        full-state checker (models/invariants.py, the plain round driver)
-        on the server's device — the card when the server runs there — and
-        fold the verdicts into Agreement/Validity booleans plus a per-kind
-        count, a second pass the *client* no longer has to make."""
+    def _invariant_summary(self, cfg, served=None) -> dict:
+        """The opt-in reply safety block: the safety invariants
+        (models/invariants.py) over a full per-replica state, folded into
+        Agreement/Validity booleans plus a per-kind count, a second pass the
+        *client* no longer has to make. On the direct leg ``served`` is
+        ``(result, state, faulty)`` of the run that answered (slot 0's for a
+        session): the check reads that run's own state. The lane leg keeps
+        no per-replica state (``run_bucket`` retires rounds and decisions
+        only), so there ``served`` is None and the config runs again on the
+        plain round driver with its full state, on the server's device."""
         from byzantinerandomizedconsensus_tpu_torch.models import (
             invariants as _invariants)
-        rep = _invariants.check_config(cfg, device=self._device)
+        if served is None:
+            rep = _invariants.check_config(cfg, device=self._device)
+        else:
+            res, state, faulty = served
+            rep = {"checked_instances": int(len(res.inst_ids)),
+                   "violations": _invariants.state_violations(
+                       cfg, state, faulty, res=res, inst_ids=res.inst_ids,
+                       device=self._device)}
         viols = rep["violations"]
         by_kind: dict = {}
         for v in viols:

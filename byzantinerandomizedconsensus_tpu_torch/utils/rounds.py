@@ -44,14 +44,14 @@ def this_round(root=None) -> Optional[int]:
     return None if judged is None else judged + 1
 
 
-def default_artifact(stem: str, root=None) -> str:
-    """Round-stamped default artifact path: ``artifacts/{stem}_r{N}.json``,
+def default_artifact(stem: str, root=None, subdir: str = "artifacts") -> str:
+    """Round-stamped default artifact path: ``{subdir}/{stem}_r{N}.json``,
     falling back to an unstamped name when the round is unknown (unparseable
     VERDICT heading). Single source for every tool's ``--out`` default so the
     naming scheme and :func:`prev_round_artifact`'s lookup cannot drift apart."""
     rnd = this_round(root)
-    return (f"artifacts/{stem}_r{rnd}.json" if rnd
-            else f"artifacts/{stem}.json")
+    return (f"{subdir}/{stem}_r{rnd}.json" if rnd
+            else f"{subdir}/{stem}.json")
 
 
 def prev_round_artifact(stem: str, root=None, subdir: str = "", usable=None):

@@ -66,7 +66,10 @@ def _sync(be) -> None:
 
 def timed_best_of(be, cfg, repeats: int = DEFAULT_REPEATS):
     """(result, walls) — ``repeats`` timed full runs of ``cfg`` after a
-    warm-up run at the exact chunk shape of the run (on the card only)."""
+    warm-up run at the exact chunk shape of the run (on the card only).
+    Raises ``RuntimeError`` where a timed run's rounds or decisions differ
+    from the first's: the runs are deterministic, so a difference is a
+    fault of the run, not noise."""
     if needs_warmup(be):
         chunk = min(be.chunk_size(cfg), cfg.instances)
         be.run(cfg, np.arange(chunk, dtype=np.int64))
@@ -74,9 +77,14 @@ def timed_best_of(be, cfg, repeats: int = DEFAULT_REPEATS):
     walls, res = [], None
     for _ in range(max(1, repeats)):
         t0 = time.perf_counter()
-        res = be.run(cfg)
+        run = be.run(cfg)
         _sync(be)
         walls.append(time.perf_counter() - t0)
+        if res is not None and not (np.array_equal(run.rounds, res.rounds)
+                                    and np.array_equal(run.decision, res.decision)):
+            raise RuntimeError(f"{cfg.protocol} n={cfg.n} {cfg.adversary} {cfg.delivery}: "
+                               f"repeated runs differ")
+        res = run
     return res, walls
 
 

@@ -205,18 +205,36 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``artifacts/hunt_port/reference.json``: (a) the defaults (evolution,
    seed 17, budget 500, generation 16, archive 8) on the direct leg, K1
    and K2 counted per library from the kernel census, pipelined and then
-   the barriered control, without the per-reply invariant checks, with 0
-   builds after the warm-up, every archive entry replayed on the card and
-   the rediscovery pin against the config4 baseline; then the same hunt's
-   first 64 evaluations with every reply's invariants checked on the card,
-   pipelined and barriered; (b) each archive entry of (a) and of (d)
+   the barriered control, every reply's safety invariants checked on the
+   state of the run that answered it (one check per evaluation, 0
+   violations), with 0 builds after the warm-up, every archive entry
+   replayed on the card and the rediscovery pin against the config4
+   baseline; (b) each archive entry of (a) and of (d)
    through the kernel by law and the plain driver on the card, per
    instance, and its safety invariants, and each library the hunts
    launched that no entry reached on the warm-up's config for it; (c) one
    small hunt in process, on the lane leg (``--kernel plain``, 0
    launches) and with ``--url`` against a ``cli serve`` subprocess; (d)
    ``--committee-scale``;
-18. a ``{"kernels": [...]}`` line, the card line, and last
+18. the telemetry consumers through the entry points a user calls: (i)
+   ``cli product`` (config1-5 as shipped, K1), every round and decision
+   histogram equal to ``artifacts/product_r5.json`` and the record valid,
+   config4's device-busy share beside ``cli profile``'s
+   (``cardprofile.py``) busy share of the same config; (ii) ``cli trace
+   overhead --configs 20 --repeats 2`` (bit-identical; within its 0.02
+   bound, or reported as unresolved where a leg's own walls spread wider
+   than the bound, as they do on the card; an overhead over
+   the bound that the walls resolve fails), then ``summary`` and ``export
+   --chrome`` of its trace; (iii) ``cli programs census --configs 20
+   --repeats 2``, judged as (ii), with K1 in its census,
+   then ``dump``, ``diff`` of the census against itself and ``roofline``
+   ((ii) and then (iii); the three records are copied to
+   ``chiprun_out/phase18/`` in the checkout); (iv) K1's
+   final state plane (``run_chunk(state=True)``) against
+   ``run_chunk_plain``'s, tolerance 0: config4 at 100,000 instances, the
+   warm-up config of each K1 library phase 17 launched, and a layout-0
+   (n > 4096) committee config;
+19. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3627,15 +3645,14 @@ def loadgen_phase(card):
 # Phase 17: the adversary hunter on the card. The reference hunts of
 # artifacts/hunt_port/make_reference.py (the JAX package's Hunter over its
 # numpy backend): (a) the cli hunt defaults, (c) a small hunt, (d) the
-# committee-scale wing. A stuck reply fails the phase by name. (a) runs
-# without the per-reply invariant checks: on the card each check is a run
-# of the plain driver with its full state, 0.72 s a candidate against 6.7
-# ms for the candidate's own run through K1 (PERF.md §4). Its first
-# HUNT_CHECKED evaluations run again with every reply checked; (b), (c)
-# and (d) check every reply and archive entry they see.
+# committee-scale wing. A stuck reply fails the phase by name. Every reply
+# of every hunt is checked: on the direct leg the check reads the final
+# state of the run that answered (TorchBackend.run_with_state), so (a)
+# checks each of its 1,000 evaluations; (b) holds each archive entry and
+# library against plain.
 HUNT_REFERENCE_FILE = "artifacts/hunt_port/reference.json"
 HUNT_WAIT_S = 300.0
-HUNT_CHECKED = 64
+HUNT_EVALUATIONS = 500
 HUNT_SMALL = ["--budget", "16", "--generation", "8", "--archive-k", "4", "--no-control"]
 HUNT_COMMITTEE = ["--committee-scale", "--budget", "32", "--generation", "8", "--no-control"]
 
@@ -3783,12 +3800,18 @@ def _hunt_phase(card):
     walls = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        # (a) the reference's defaults on the direct leg, census on
-        say(f"[hunt] (a) cli hunt --device cuda --no-invariants (the defaults otherwise) ...")
+        # (a) the reference's defaults on the direct leg, census on, every
+        # reply checked on its own run's state
+        say("[hunt] (a) cli hunt --device cuda (the defaults, invariants on) ...")
         doc_a, reg_a, walls["a"], launched_a, by_lib_a = hunt_step(
-            "cli hunt (the defaults)", ["--device", "cuda", "--no-invariants"], tmp, "a",
-            census=True)
+            "cli hunt (the defaults)", ["--device", "cuda"], tmp, "a", census=True)
         hunt_checks("cli hunt", doc_a, baseline)
+        checks = int(metrics.snapshot()["brc_serve_invariant_checks_total"]["series"][0]
+                     ["value"])
+        if checks != 2 * HUNT_EVALUATIONS or doc_a["hunt"]["evaluations"] != HUNT_EVALUATIONS:
+            fail(f"cli hunt: {checks} replies checked over "
+                 f"{doc_a['hunt']['evaluations']} evaluations, not one per evaluation "
+                 f"pipelined and barriered ({2 * HUNT_EVALUATIONS})")
         hunt_equal("cli hunt, pipelined", reg_a, legs["a"]["pipelined"])
         control = legs["a"]["barriered"]
         if doc_a["control_archive_digests"] != [e["digest"] for e in control["archive"]] \
@@ -3801,36 +3824,19 @@ def _hunt_phase(card):
         h = doc_a["hunt"]
         kinds = doc_a["by_kernel"]
         say(f"[hunt] (a) cli hunt (evolution, seed 17, budget 500, generation 16, archive 8, "
-            f"width=64,segment=1, invariants off), direct leg: {h['evaluations']} evaluations, "
-            f"best fitness {h['best_fitness']}, archive of {h['archive_size']} == "
-            f"{HUNT_REFERENCE_FILE} digest for digest, pipelined and barriered; "
-            f"0 builds after the warm-up, {len(doc_a['replay_check'])} replays ok on the "
-            f"card, baseline {h['baseline_mean_rounds']}, rediscovery {h['rediscovery']}; "
-            f"walls: pipelined {h['pipelined_wall_s']} s, barriered {h['barriered_wall_s']} "
-            f"s, pipeline_speedup {h['pipeline_speedup']}; the step {walls['a']:.1f} s; {card}")
+            f"width=64,segment=1, invariants on), direct leg: {h['evaluations']} evaluations, "
+            f"{checks} replies checked on the state of the run that answered, "
+            f"{h['violations']} violations; best fitness {h['best_fitness']}, archive of "
+            f"{h['archive_size']} == {HUNT_REFERENCE_FILE} digest for digest, pipelined and "
+            f"barriered; 0 builds after the warm-up, {len(doc_a['replay_check'])} replays ok "
+            f"on the card, baseline {h['baseline_mean_rounds']}, rediscovery "
+            f"{h['rediscovery']}; walls: pipelined {h['pipelined_wall_s']} s, barriered "
+            f"{h['barriered_wall_s']} s, pipeline_speedup {h['pipeline_speedup']}; the step "
+            f"{walls['a']:.1f} s; {card}")
         say(f"[hunt] (a) pipelined evaluations by kernel {kinds} (plain-driver runs "
             f"{kinds.get('plain', {}).get('evaluations', 0)}); launches in the step "
             f"(warm-up, both hunts, replays, baseline) {launched_a}, per library (census) "
             f"{by_lib_a}; {card}")
-
-        # (a) checked: the same hunt's first evaluations, every reply's
-        # invariants checked on the card, pipelined and barriered
-        say(f"[hunt] (a) cli hunt --device cuda --budget {HUNT_CHECKED} (invariants on) ...")
-        doc_k, _, walls["a_checked"], _, _ = hunt_step(
-            f"cli hunt --budget {HUNT_CHECKED}",
-            ["--device", "cuda", "--budget", str(HUNT_CHECKED)], tmp, "a_checked")
-        hunt_checks(f"cli hunt --budget {HUNT_CHECKED}", doc_k, baseline)
-        checks = metrics.snapshot()["brc_serve_invariant_checks_total"]["series"][0]
-        checks = int(checks["value"])
-        if checks != 2 * HUNT_CHECKED:
-            fail(f"cli hunt --budget {HUNT_CHECKED}: {checks} replies checked, not "
-                 f"{2 * HUNT_CHECKED} (pipelined and barriered)")
-        hk = doc_k["hunt"]
-        say(f"[hunt] (a) cli hunt --budget {HUNT_CHECKED} (the defaults otherwise, invariants "
-            f"on): {checks} replies checked on the card, {hk['violations']} violations, best "
-            f"fitness {hk['best_fitness']}, 0 builds after the warm-up; walls: pipelined "
-            f"{hk['pipelined_wall_s']} s, barriered {hk['barriered_wall_s']} s; by kernel "
-            f"{doc_k['by_kernel']}; the step {walls['a_checked']:.1f} s; {card}")
 
         # (c) one small hunt three ways: in process on the direct leg, on the
         # lane leg (no launch), against a cli serve subprocess over HTTP
@@ -3895,10 +3901,268 @@ def _hunt_phase(card):
         "pipelined_wall_s": doc_a["hunt"]["pipelined_wall_s"],
         "barriered_wall_s": doc_a["hunt"]["barriered_wall_s"],
         "pipeline_speedup": doc_a["hunt"]["pipeline_speedup"],
-        "checked": {k: doc_k["hunt"][k] for k in ("evaluations", "violations",
-                                                   "pipelined_wall_s", "barriered_wall_s")},
+        "checks_a": checks, "violations_a": doc_a["hunt"]["violations"],
         "phase_wall_s": wall}}))
     return by_lib_a, by_lib_d, errs_a, errs_d
+
+
+# Phase 18: the telemetry consumers (cli product, cli trace, cli programs)
+# through the entry points a user calls, and K1's final state plane. The
+# three records and their traces are copied to RECORDS_DIR in the checkout,
+# for a reader to validate against both packages' schema on a machine with
+# the JAX package.
+# The A/Bs' grid: 20 of the reference's 40 configs, about 6 s a lane pass
+# here against 11-13 s; the lanes' walls spread 10-30% from repeat to
+# repeat on the card at either size, wider than the 0.02 bound.
+TELEMETRY_CONFIGS = 20
+TELEMETRY_REPEATS = 2
+# The untimed compacted legs' configs: their spans, not their walls, are the
+# point, and each of the 40 configs through the lanes takes about 0.2 s here.
+TELEMETRY_COMPACTED = 8
+PRODUCT_REPEATS = 3
+PROFILE_RUNS = 2
+STATE_INSTANCES = 512
+STATE_LAYOUT0 = (8192, 256)
+RECORDS_DIR = "chiprun_out/phase18"
+
+
+def state_compare(cfg, ids, label):
+    """K1's final state plane (``run_chunk(state=True)``) against
+    ``run_chunk_plain``'s on the same ids, with rounds and decisions:
+    tolerance 0. Returns the max abs err (0) and K1's launches."""
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+
+    before = fused_round.launches
+    rk, dk, wk = fused_round.run_chunk(cfg, ids, state=True)
+    rp, dp, wp = fused_round.run_chunk_plain(cfg, ids, state=True)
+    torch.cuda.synchronize()
+    err = max(int((rk - rp).abs().max()), int((dk.int() - dp.int()).abs().max()),
+              int((wk.long() - wp.long()).abs().max()))
+    if err or tuple(wk.shape) != (len(ids), cfg.n):
+        bad = (wk != wp).any(dim=1)
+        i = int(bad.nonzero()[0, 0]) if bad.any() else 0
+        fail(f"{label}: K1's state plane {tuple(wk.shape)} differs from plain's (max abs "
+             f"err {err}); first instance {int(ids[i])}: kernel {wk[i, :8].tolist()} vs "
+             f"plain {wp[i, :8].tolist()}")
+    return err, fused_round.launches - before
+
+
+def product_checks(doc, card):
+    """``cli product``'s record: each configuration's histograms equal to
+    the reference's product run, and the record valid."""
+    from byzantinerandomizedconsensus_tpu_torch.obs import record
+
+    want = json.loads((ROOT / PRODUCT_FILE).read_text())
+    problems = record.validate_record(doc)
+    if problems or doc.get("kind") != "product":
+        fail(f"cli product: the record is not valid: {problems}")
+    for name in ("config1", "config2", "config3", "config4", "config5"):
+        got = doc[name]
+        if got["decision_histogram"] != want[name]["decision_histogram"] \
+                or got["round_histogram"] != want[name]["round_histogram"]:
+            fail(f"cli product {name}: histograms differ from {PRODUCT_FILE}: decisions "
+                 f"{got['decision_histogram']}, rounds "
+                 f"{[(r, c) for r, c in enumerate(got['round_histogram']) if c]}")
+        say(f"[telemetry] (i) cli product {name} ({got['kernel']}): histograms == "
+            f"{PRODUCT_FILE}; best wall {got['wall_s']} s of {got['walls_s']}, "
+            f"{got['instances_per_sec']} instances/s, device busy "
+            f"{got.get('device_busy_s', got.get('device_busy_error'))} s; {card}")
+
+
+def keep_record(tmp, name):
+    """Copy a phase 18 record and its trace to :data:`RECORDS_DIR`."""
+    import shutil
+
+    out = ROOT / RECORDS_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    for f in (tmp / f"{name}.json", tmp / f"{name}.jsonl"):
+        if f.exists():
+            shutil.copy(f, out / f.name)
+
+
+def overhead_step(label, argv, out):
+    """Run an overhead A/B (``cli trace overhead``, ``cli programs
+    census``) in this process and return ``(record, wall_s, verdict)``. It
+    fails unless the tool exits 0 or 1 and its record shows bit-identical
+    lanes; it fails on an overhead over the bound where the legs' own walls
+    resolve the bound. Where they do not (``resolved`` false), the ratio is
+    reported as unresolved, whichever side of the bound it reads."""
+    from byzantinerandomizedconsensus_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--out", str(out)])
+    wall = time.perf_counter() - t0
+    doc = json.loads(pathlib.Path(out).read_text()) if pathlib.Path(out).exists() else None
+    if rc not in (0, 1) or doc is None or doc.get("bit_identical") is not True:
+        fail(f"{label}: `cli {' '.join(argv)}` exited {rc}; bit_identical "
+             f"{None if doc is None else doc.get('bit_identical')}")
+    over = doc["overhead_fraction"] is None or doc["overhead_fraction"] > doc["overhead_bound"]
+    if rc == 1 and not over:
+        fail(f"{label}: exited 1 with its overhead within the bound: the record is incomplete")
+    if over and doc["resolved"]:
+        fail(f"{label}: overhead {doc['overhead_fraction']} over the bound "
+             f"{doc['overhead_bound']}, the legs' walls spreading {doc['wall_spread']}")
+    verdict = (f"{'over' if over else 'within'} the bound {doc['overhead_bound']}, "
+               + ("resolved" if doc["resolved"] else
+                  f"UNRESOLVED: a leg's walls spread {doc['wall_spread']} across "
+                  f"repeats, wider than the bound"))
+    say(f"[load] `cli {' '.join(argv)}`: rc {rc} in {wall:.1f} s ({verdict})")
+    return doc, wall, verdict
+
+
+def telemetry_phase(card, k1_libraries):
+    """Phase 18. ``k1_libraries`` are the K1 libraries phase 17 launched.
+    Returns ``{library: [path entries]}`` for the kernels line."""
+    import tempfile
+
+    from byzantinerandomizedconsensus_tpu_torch import cardprofile, get_backend, preset
+    from byzantinerandomizedconsensus_tpu_torch.config import committee_point
+    from byzantinerandomizedconsensus_tpu_torch.hunt import hunter
+    from byzantinerandomizedconsensus_tpu_torch.hunt import space as hunt_space
+    from byzantinerandomizedconsensus_tpu_torch.ops import fused_round
+    from byzantinerandomizedconsensus_tpu_torch.tools import loadgen
+
+    t_phase = time.perf_counter()
+    walls, paths = {}, {}
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # (i) cli product, config1-5 as shipped through K1
+        reset_launches()
+        doc, walls["product"] = cli_step(
+            "cli product", ["product", "--repeats", str(PRODUCT_REPEATS)], tmp / "product.json")
+        launched = read_launches()
+        if launched["fused_round"] < 5:
+            fail(f"cli product launched {launched}: K1 for each of config1-5 expected")
+        product_checks(doc, card)
+        keep_record(tmp, "product")
+        paths.setdefault("fused_round", []).append({
+            "config": "cli product (config1-5 as shipped; histograms == product_r5.json)",
+            "launches": launched["fused_round"], "max_abs_err": 0})
+        c4 = preset("config4")
+        prof = cardprofile.trace_runs(get_backend("torch"), c4, PROFILE_RUNS,
+                                      tmp / "profile_config4.json")
+        e4 = doc["config4"]
+        busy = e4.get("device_busy_s")
+        # The record rounds walls to the ms; its rate keeps the best wall.
+        wall4 = e4["instances"] / e4["instances_per_sec"]
+        say(f"[telemetry] (i) config4 device busy: cli product's device_busy_s {busy} s in a "
+            f"run whose best wall is {wall4} s (share "
+            f"{busy / wall4 if busy else None}); cli profile's busy "
+            f"share of the traced runs' window {prof['device_busy']} (idle "
+            f"{prof['device_idle']}), host ms per run {prof['host_ms_per_run']}, device ms "
+            f"per run by kernel {prof['device_ms_per_run_by_name']}; {card}")
+
+        # (ii) cli trace overhead, then (iii) cli programs census, one after
+        # the other: their lanes are host-bound, so a pass beside another
+        # would time the other's load as much as its own
+        ab = ["--configs", str(TELEMETRY_CONFIGS), "--repeats", str(TELEMETRY_REPEATS),
+              "--compacted-sample", str(TELEMETRY_COMPACTED)]
+        doc_t, walls["trace_overhead"], verdict_t = overhead_step(
+            "cli trace overhead", ["trace", "overhead", *ab], tmp / "trace.json")
+        keep_record(tmp, "trace")
+        _, walls["trace_summary"] = cli_step("cli trace summary",
+                                             ["trace", "summary", str(tmp / "trace.jsonl")])
+        _, walls["trace_export"] = cli_step(
+            "cli trace export", ["trace", "export", "--chrome", str(tmp / "trace.jsonl")])
+        if not (tmp / "trace.chrome.json").exists():
+            fail("cli trace export wrote no Chrome trace")
+        say(f"[telemetry] (ii) cli trace overhead --configs {TELEMETRY_CONFIGS} --repeats "
+            f"{TELEMETRY_REPEATS}: overhead {doc_t['overhead_fraction']} ({verdict_t}), "
+            f"bit_identical {doc_t['bit_identical']}, best walls untraced {doc_t['legs']['untraced']['wall_s']} s, traced "
+            f"{doc_t['legs']['traced']['wall_s']} s, by repeat untraced "
+            f"{doc_t['legs']['untraced']['walls_s']} s, traced "
+            f"{doc_t['legs']['traced']['walls_s']} s, {doc_t['trace']['events']} events; "
+            f"summary and export --chrome rc 0; {card}")
+
+        # (iii) then dump, diff and roofline of the census
+        doc_p, walls["programs_census"], verdict_p = overhead_step(
+            "cli programs census", ["programs", "census", *ab], tmp / "programs.json")
+        keep_record(tmp, "programs")
+        by_lib = census_by_library(doc_p)
+        k1 = {k: v for k, v in by_lib.items() if k.startswith("fused_round")}
+        if not k1 or doc_p["programs"]["totals"]["kernel_launches"] != sum(by_lib.values()):
+            fail(f"cli programs census: K1 launches in the census {by_lib}, totals "
+                 f"{doc_p['programs']['totals']}")
+        census = str(tmp / "programs.json")
+        for verb in (["dump", census], ["diff", census, census],
+                     ["roofline", "--census", census]):
+            _, walls[f"programs_{verb[0]}"] = cli_step(f"cli programs {verb[0]}",
+                                                       ["programs", *verb])
+        for lib, n in k1.items():
+            paths.setdefault(lib, []).append({
+                "config": f"cli programs census (per-config sample of the chaos grid, "
+                          f"seed 0): census launches", "launches": n, "max_abs_err": 0})
+        say(f"[telemetry] (iii) cli programs census --configs {TELEMETRY_CONFIGS} --repeats "
+            f"{TELEMETRY_REPEATS}: overhead {doc_p['overhead_fraction']} ({verdict_p}), "
+            f"bit_identical {doc_p['bit_identical']}, best walls census-off {doc_p['legs']['census_off']['wall_s']} s, census-on "
+            f"{doc_p['legs']['census_on']['wall_s']} s, by repeat census-off "
+            f"{doc_p['legs']['census_off']['walls_s']} s, census-on "
+            f"{doc_p['legs']['census_on']['walls_s']} s, {doc_p['programs']['count']} "
+            f"entries, per-config kernels {doc_p['per_config_kernels']}, K1 in the census "
+            f"{k1}; dump, diff (itself) and roofline rc 0; {card}")
+
+    # (iv) K1's state plane against plain's, tolerance 0
+    t0 = time.perf_counter()
+    ids = torch.arange(c4.instances, dtype=torch.int32, device=dev)
+    chunk = get_backend("torch", kernel="plain").chunk_size(c4)
+    err = launches = 0
+    for lo in range(0, len(ids), chunk):
+        e, n = state_compare(c4, ids[lo:lo + chunk], f"config4 ids {lo}..")
+        err, launches = max(err, e), launches + n
+    on = "config4 (100,000 instances, in chunks of the plain driver's)"
+    compared = {"fused_round": [on]}
+    counts = {"fused_round": launches}
+    state_ms = cuda_ms(lambda: fused_round.run_chunk(c4, ids, state=True), 5)
+    null_ms = cuda_ms(lambda: fused_round.run_chunk(c4, ids), 5)
+    say(f"[telemetry] (iv) K1's state plane == plain's on {on}: max abs err {err}; K1 on "
+        f"config4 {null_ms:.4f} ms with state_out null, {state_ms:.4f} ms writing the "
+        f"(100000, 512) plane (mean of 5, CUDA events); {card}")
+    law = get_backend("torch")
+    warm = {}
+    for scale in (False, True):
+        space = hunt_space.SearchSpace(committee_scale=scale)
+        for c in loadgen.library_configs(law, hunter.library_sample(space)):
+            warm.setdefault(loadgen.library_of(law, c), c)
+    for lib in sorted(k1_libraries):
+        if lib not in warm:
+            fail(f"phase 17 launched {lib}, which no warm-up config reaches")
+        cfg = dataclasses.replace(warm[lib], instances=STATE_INSTANCES).validate()
+        e, n = state_compare(cfg, torch.arange(cfg.instances, dtype=torch.int32, device=dev),
+                             f"{lib} warm-up config")
+        on = (f"{lib}'s warm-up config ({cfg.protocol} n={cfg.n} {cfg.adversary} "
+              f"{cfg.delivery} faults {cfg.faults}, {cfg.instances} instances)")
+        compared.setdefault(lib, []).append(on)
+        counts[lib] = counts.get(lib, 0) + n
+        say(f"[telemetry] (iv) K1's state plane == plain's on {on}; {card}")
+    n0, b0 = STATE_LAYOUT0
+    cfg = dataclasses.replace(committee_point(n0), instances=b0).validate()
+    lib = fused_round.library(cfg)
+    if fused_round.layout(cfg) != 0:
+        fail(f"committee_point({n0}) is not a layout-0 config")
+    e, n = state_compare(cfg, torch.arange(b0, dtype=torch.int32, device=dev), lib)
+    on = f"committee_point({n0}) at {b0} instances (layout 0: the scratch plane)"
+    compared.setdefault(lib, []).append(on)
+    counts[lib] = counts.get(lib, 0) + n
+    say(f"[telemetry] (iv) K1's state plane == plain's on {on}; {card}")
+    for lib, ons in compared.items():
+        paths.setdefault(lib, []).append({
+            "config": "phase 18 (iv): K1's final state plane against run_chunk_plain's",
+            "launches": counts[lib], "max_abs_err": 0, "compared_on": ons})
+    walls["state_planes"] = time.perf_counter() - t0
+
+    wall = time.perf_counter() - t_phase
+    say(f"[telemetry] phase 18 took {wall:.1f} s; steps {walls}; {card}")
+    say("[telemetry] " + json.dumps({"telemetry": {
+        "walls_s": walls, "phase_wall_s": wall, "k1_null_ms": null_ms,
+        "k1_state_ms": state_ms, "trace_overhead": doc_t["overhead_fraction"],
+        "trace_wall_spread": doc_t["wall_spread"], "trace_resolved": doc_t["resolved"],
+        "census_overhead": doc_p["overhead_fraction"],
+        "census_wall_spread": doc_p["wall_spread"], "census_resolved": doc_p["resolved"],
+        "census_k1": k1,
+        "config4_device_busy_s": busy, "config4_wall_s": wall4,
+        "profile_device_busy": prof["device_busy"]}}))
+    return paths
 
 
 def main() -> int:
@@ -4115,6 +4379,15 @@ def main() -> int:
                 "config": label, "launches": launches,
                 "max_abs_err": errs[lib]["max_abs_err"],
                 "compared_on": errs[lib]["compared_on"]})
+
+    # Phase 18: the telemetry consumers (cli product, cli trace, cli
+    # programs) through K1, and K1's final state plane against plain's.
+    k1_libs = {lib for by_lib in (by_lib_a, by_lib_d) for lib in by_lib
+               if lib.startswith("fused_round")}
+    for lib, entries in telemetry_phase(card, k1_libs).items():
+        if lib not in by_name:
+            fail(f"phase 18 launched {lib}, which has no entry in the kernels line")
+        by_name[lib].setdefault("paths", []).extend(entries)
 
     say(json.dumps({"kernels": kernels}))
     say(card)

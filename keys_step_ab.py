@@ -26,9 +26,10 @@ launches in a CUDA graph, its replay timed by CUDA events. It prints both
 builds' ptxas registers and spills and the card's name and power limit.
 
 For ``fused_round`` the earlier version's C entry point is the one that
-takes the adversary's planes and codes but no fault schedule (ids, faulty,
-crash rounds, rounds, decision, then the sizes, the init, coin, protocol and
-adversary codes and the key). The run is config4's 100,000 instances in one
+takes the adversary's and the fault schedule's eight planes but no state
+plane (ids, the planes, rounds, decision, then the sizes, the init, coin,
+protocol, adversary and fault codes and the key). The run is config4's
+100,000 instances in one
 launch each: the two kernels must give identical results and the
 reference's histograms, and each turn is the mean of 5 launches timed by
 CUDA events, as ``chip_smoke.py`` times config4, in three rounds of turns
@@ -230,24 +231,23 @@ def ab_fused(old: pathlib.Path) -> None:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"[ptxas] {what}: {line.strip()}", flush=True)
-        # The earlier entry point's config4 instantiation: (bracha, none), no
-        # schedule argument.
-        sass_diff("fused_round", pathlib.Path(tmp) / "fused_round_old.so",
-                  "fused_round_kernelILi1ELi0EE")
-        # config4 has no adversary: null faulty and crash planes.
+        # config4's instantiation: (bracha, none, none).
+        sass_diff("fused_round", pathlib.Path(tmp) / "fused_round_old.so")
+        # config4 has no adversary and no schedule: eight null planes.
         old_fn = lib.brc_fused_round_launch
-        old_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        old_fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
         old_fn.restype = ctypes.c_int
 
         def run_old():
             rounds = torch.empty(cfg.instances, dtype=torch.int32, device="cuda")
             decision = torch.empty(cfg.instances, dtype=torch.uint8, device="cuda")
-            rc = old_fn(ids.data_ptr(), None, None, rounds.data_ptr(),
+            rc = old_fn(ids.data_ptr(), *([None] * 8), rounds.data_ptr(),
                         decision.data_ptr(), cfg.instances, cfg.n, cfg.f, cfg.round_cap,
                         fused_round._INIT_CODES[cfg.init], fused_round._COIN_CODES[cfg.coin],
                         fused_round._PROTOCOL_CODES[cfg.protocol],
-                        fused_round._ADVERSARY_CODES[cfg.adversary], k0, k1,
+                        fused_round._ADVERSARY_CODES[cfg.adversary],
+                        fused_round._FAULT_CODES[cfg.faults], k0, k1,
                         torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 chip_smoke.fail(f"the earlier fused_round failed to launch: CUDA error {rc}")

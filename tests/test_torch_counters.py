@@ -161,14 +161,15 @@ def test_accumulator_sums_max_merges_and_masks():
 
 def test_kernels_and_mesh_raise_counters_unsupported_by_name():
     """No counter channel on the CUDA kernels or the mesh: they raise by
-    name before any work, and never count the plain path instead."""
+    name before any work, and never count the plain path instead. (The
+    per-replica state has a channel on every kernel:
+    tests/test_torch_state_out.py.)"""
     cfg = preset("config1")
     for kernel in ("fused", "step"):
         be = TorchBackend(device="cpu")
         be.kernel = kernel  # the card's kernel choice, without a card
-        for fn in (be.run_with_counters, be.run_with_state):
-            with pytest.raises(counters.CountersUnsupported, match=f"kernel='{kernel}'"):
-                fn(cfg)
+        with pytest.raises(counters.CountersUnsupported, match=f"kernel='{kernel}'"):
+            be.run_with_counters(cfg)
     with pytest.raises(counters.CountersUnsupported, match="per-step delivery kernels"):
         driver.run_chunk_full(cfg, torch.arange(1, dtype=torch.int32),
                               counts_fn=keys_step.counts_fn, counters=True)

@@ -101,7 +101,7 @@ def host():
     lib.brc_partition_cut.argtypes = [i32] * 3
     lib.brc_own_side_totals.argtypes = [i32] * 7 + [p]
     lib.brc_own_side_totals.restype = None
-    lib.brc_host_fused_round.argtypes = [p] * 11 + [i32] * 9 + [u32] * 2
+    lib.brc_host_fused_round.argtypes = [p] * 12 + [i32] * 9 + [u32] * 2
     lib.brc_host_fused_round.restype = None
     return lib
 
@@ -165,16 +165,17 @@ def _host_run(host, cfg, ids):
     ids = np.ascontiguousarray(ids, dtype=np.int32)
     rounds = np.empty(B, dtype=np.int32)
     decision = np.empty(B, dtype=np.uint8)
+    words = np.empty((B, cfg.n), dtype=np.int32)
     k0, k1 = prf.seed_key(cfg.seed)
     planes = [None if x is None else np.ascontiguousarray(x.numpy()) for x in
               fused_round.operand_planes(cfg, torch.as_tensor(ids), (k0, k1))]
     host.brc_host_fused_round(
         ids.ctypes.data, *(None if x is None else x.ctypes.data for x in planes),
-        rounds.ctypes.data, decision.ctypes.data, B, cfg.n, cfg.f, cfg.round_cap,
+        rounds.ctypes.data, decision.ctypes.data, words.ctypes.data, B, cfg.n, cfg.f, cfg.round_cap,
         fused_round._INIT_CODES[cfg.init], fused_round._COIN_CODES[cfg.coin],
         fused_round._PROTOCOL_CODES[cfg.protocol], fused_round._ADVERSARY_CODES[cfg.adversary],
         fused_round._FAULT_CODES[cfg.faults], k0, k1)
-    return rounds, decision
+    return rounds, decision, words
 
 
 HOST_CASES = [(kind, protocol, adversary) for kind in KINDS
@@ -194,10 +195,12 @@ def test_host_round_loop_matches_plain_driver_under_faults(host, kind, protocol,
                     delivery="urn2", round_cap=24, faults=kind,
                     seed=len(kind) * 10 + len(adversary)).validate()
     ids = np.random.default_rng(n).choice(cfg.instances, 24, replace=False)
-    rounds, decision = _host_run(host, cfg, ids)
-    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32))
+    rounds, decision, words = _host_run(host, cfg, ids)
+    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32),
+                                       state=True)
     np.testing.assert_array_equal(rounds, want[0].numpy())
     np.testing.assert_array_equal(decision, want[1].numpy())
+    np.testing.assert_array_equal(words, want[2].numpy())
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -206,10 +209,12 @@ def test_host_round_loop_matches_plain_at_config4_width(host, kind):
     cfg = SimConfig(protocol="bracha", n=512, f=170, instances=100_000, coin="shared",
                     delivery="urn2", faults=kind).validate()
     ids = np.array([0, 1, 2, 77_777])
-    rounds, decision = _host_run(host, cfg, ids)
-    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32))
+    rounds, decision, words = _host_run(host, cfg, ids)
+    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32),
+                                       state=True)
     np.testing.assert_array_equal(rounds, want[0].numpy())
     np.testing.assert_array_equal(decision, want[1].numpy())
+    np.testing.assert_array_equal(words, want[2].numpy())
 
 
 @pytest.mark.parametrize("law,module", [("keys", keys_step), ("urn", urn_step)])

@@ -82,7 +82,7 @@ def hosts():
     for law, name in (("urn", "fused_round_wide_urn_host"),
                       ("committee", "fused_round_wide_committee_host")):
         fn = _build.load_host(name).brc_host_fused_round_wide
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_uint32] * 2
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 + [ctypes.c_uint32] * 2
         fn.restype = ctypes.c_int
         libs[law] = fn
     return libs
@@ -90,24 +90,26 @@ def hosts():
 
 def host_run(hosts, cfg, ids):
     """The wide kernel's round loop built for the host, on the planes the
-    wrapper builds."""
+    wrapper builds: ``(rounds, decision, words)``, ``words`` the final state
+    words (int32) as the kernel's state plane holds them."""
     fn = hosts["committee" if cfg.delivery == "committee" else "urn"]
     B = len(ids)
     ids = np.ascontiguousarray(ids, dtype=np.int32)
     rounds = np.empty(B, dtype=np.int32)
     decision = np.empty(B, dtype=np.uint8)
+    words = np.empty((B, cfg.n), dtype=np.int32)
     k0, k1 = prf.seed_key(cfg.seed)
     planes = [None if x is None else np.ascontiguousarray(x.numpy()) for x in
               fused_round.operand_planes(cfg, torch.as_tensor(ids), (k0, k1))]
     rc = fn(ids.ctypes.data, *(None if x is None else x.ctypes.data for x in planes),
-            rounds.ctypes.data, decision.ctypes.data, B, cfg.n, cfg.f, cfg.round_cap,
+            rounds.ctypes.data, decision.ctypes.data, words.ctypes.data, B, cfg.n, cfg.f, cfg.round_cap,
             fused_round._INIT_CODES[cfg.init], fused_round._COIN_CODES[cfg.coin],
             *fused_round.wide_params(cfg), fused_round._LAW_CODES[cfg.delivery],
             fused_round._PROTOCOL_CODES[cfg.protocol],
             fused_round._ADVERSARY_CODES[cfg.adversary], fused_round._FAULT_CODES[cfg.faults],
             k0, k1)
     assert rc == 0
-    return rounds, decision
+    return rounds, decision, words
 
 
 def _f(law, protocol, n, adversary):
@@ -141,10 +143,12 @@ def test_host_round_loop_matches_plain_driver(hosts, law, n, protocol, adversary
                     round_cap=24 if small else 6, faults=faults, seed=i + 7 + n).validate()
     ids = np.random.default_rng(n + i).choice(cfg.instances, 12 if small else 2,
                                               replace=False)
-    rounds, decision = host_run(hosts, cfg, ids)
-    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32))
+    rounds, decision, words = host_run(hosts, cfg, ids)
+    want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32),
+                                       state=True)
     np.testing.assert_array_equal(rounds, want[0].numpy())
     np.testing.assert_array_equal(decision, want[1].numpy())
+    np.testing.assert_array_equal(words, want[2].numpy())
 
 
 def test_host_round_loop_at_committee_point_widths(hosts):
@@ -153,10 +157,12 @@ def test_host_round_loop_at_committee_point_widths(hosts):
     for n in (8192, 131_072):
         cfg = committee_point(n)
         ids = np.array([0, 1999])
-        rounds, decision = host_run(hosts, cfg, ids)
-        want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32))
+        rounds, decision, words = host_run(hosts, cfg, ids)
+        want = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids, dtype=torch.int32),
+                                           state=True)
         np.testing.assert_array_equal(rounds, want[0].numpy())
         np.testing.assert_array_equal(decision, want[1].numpy())
+        np.testing.assert_array_equal(words, want[2].numpy())
 
 
 @pytest.mark.parametrize("fields,library,layout", [
@@ -212,7 +218,7 @@ def test_host_round_loop_matches_reference_fused_kernel_under_urn(hosts, cfg,
     cfg = cfg.validate()
     ids = np.arange(cfg.instances, dtype=np.uint32)
     want = pallas_round.run_chunk(_ref(cfg), ids, interpret=True)
-    rounds, decision = host_run(hosts, cfg, ids)
+    rounds, decision, _ = host_run(hosts, cfg, ids)
     np.testing.assert_array_equal(rounds, np.asarray(want[0]))
     np.testing.assert_array_equal(decision, np.asarray(want[1]))
 

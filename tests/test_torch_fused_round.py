@@ -324,12 +324,14 @@ def test_cli_run_prints_the_reference_summary_keys(capsys):
 
 def test_cli_product_prints_the_shipped_configs(capsys, tmp_path):
     """``cli product`` on the CPU: each configuration as shipped, with the
-    reference product run's summary keys and histograms."""
+    reference product run's summary keys and histograms, in the record it
+    writes; its last line on stdout names the record."""
     out_file = tmp_path / "product.json"
     assert cli.main(["product", "--device", "cpu", "--configs", "config1", "--repeats", "2",
                      "--out", str(out_file)]) == 0
-    out = json.loads(capsys.readouterr().out)
-    assert json.loads(out_file.read_text()) == out
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["out"] == str(out_file) and last["configs"] == ["config1"]
+    out = json.loads(out_file.read_text())
     prod = json.loads((pathlib.Path(__file__).resolve().parents[1] / "artifacts"
                        / "product_r5.json").read_text())["config1"]
     got = out["config1"]
@@ -343,10 +345,10 @@ def test_cli_product_prints_the_shipped_configs(capsys, tmp_path):
 
 
 def test_trace_summary_of_a_chrome_trace():
-    """``trace.summarize`` on a hand-made trace: the first marked run is
+    """``cardprofile.summarize`` on a hand-made trace: the first marked run is
     left out, the busy share is the union of the device intervals inside
     the other runs' window, and time is summed by kernel name."""
-    from byzantinerandomizedconsensus_tpu_torch import trace
+    from byzantinerandomizedconsensus_tpu_torch import cardprofile as trace
 
     def mark(ts, dur):
         return {"name": trace.MARK, "cat": "user_annotation", "ts": ts, "dur": dur}
@@ -379,4 +381,4 @@ def test_cli_named_configs_and_trace_needs_the_card():
     assert keys.delivery == "keys" and keys.n == 512 and keys.adversary == "adaptive"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main(["trace", "--configs", "config1"])
+            cli.main(["profile", "--configs", "config1"])

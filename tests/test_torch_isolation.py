@@ -63,5 +63,7 @@ def test_port_imports_and_runs_with_jax_and_the_reference_blocked():
                    "serve", "serve.admission", "serve.wal", "serve.server",
                    "utils.rounds", "utils.timing", "utils.profiling", "tools.sampler",
                    "tools.divergence", "tools.soak", "tools.loadgen", "tools.hostile",
-                   "hunt", "hunt.space", "hunt.strategies", "hunt.archive", "hunt.hunter"):
+                   "hunt", "hunt.space", "hunt.strategies", "hunt.archive", "hunt.hunter",
+                   "cardprofile", "tools.bench_batch", "tools.trace", "tools.programs",
+                   "tools.product"):
         assert f"byzantinerandomizedconsensus_tpu_torch.{module}" in lines[-1]

@@ -58,7 +58,7 @@ def host():
     lib.brc_benor_report.restype = u32
     lib.brc_benor_update.argtypes = [u32] * 2 + [i32] * 4 + [u32] * 4 + [i32] * 2
     lib.brc_benor_update.restype = u32
-    lib.brc_host_fused_round.argtypes = [p] * 11 + [i32] * 9 + [u32] * 2
+    lib.brc_host_fused_round.argtypes = [p] * 12 + [i32] * 9 + [u32] * 2
     lib.brc_host_fused_round.restype = None
     return lib
 
@@ -125,22 +125,24 @@ def test_urn2_counts_match_plain(host, n, f):
 def _host_run(host, cfg, ids):
     """The host build of the kernel's round loop on ``ids``, with the
     adversary's and the fault schedule's planes built by the wrapper's own
-    ``operand_planes``."""
+    ``operand_planes``: ``(rounds, decision, words)``, ``words`` the final
+    state words as the kernel's state_out plane holds them (int32)."""
     B = len(ids)
     ids = np.ascontiguousarray(ids, dtype=np.int32)
     rounds = np.empty(B, dtype=np.int32)
     decision = np.empty(B, dtype=np.uint8)
+    words = np.empty((B, cfg.n), dtype=np.int32)
     k0, k1 = prf.seed_key(cfg.seed)
     planes = [None if x is None else np.ascontiguousarray(x.numpy()) for x in
               fused_round.operand_planes(cfg, torch.as_tensor(ids), (k0, k1))]
     host.brc_host_fused_round(
         ids.ctypes.data, *(None if x is None else x.ctypes.data for x in planes),
-        rounds.ctypes.data, decision.ctypes.data,
+        rounds.ctypes.data, decision.ctypes.data, words.ctypes.data,
         B, cfg.n, cfg.f, cfg.round_cap, fused_round._INIT_CODES[cfg.init],
         fused_round._COIN_CODES[cfg.coin], fused_round._PROTOCOL_CODES[cfg.protocol],
         fused_round._ADVERSARY_CODES[cfg.adversary], fused_round._FAULT_CODES[cfg.faults],
         k0, k1)
-    return rounds, decision
+    return rounds, decision, words
 
 
 HOST_CASES = [
@@ -160,10 +162,12 @@ def test_host_round_loop_matches_plain_driver(host, case):
     cfg = SimConfig(protocol="bracha", n=n, f=f, instances=100_000, init=init,
                     coin=coin, round_cap=cap, seed=n + cap, delivery="urn2").validate()
     ids = np.random.default_rng(n).choice(cfg.instances, B, replace=False)
-    rounds, decision = _host_run(host, cfg, ids)
-    pr, pd = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids.astype(np.int32)))
+    rounds, decision, words = _host_run(host, cfg, ids)
+    pr, pd, pw = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids.astype(np.int32)),
+                                             state=True)
     np.testing.assert_array_equal(rounds, pr.numpy())
     np.testing.assert_array_equal(decision, pd.numpy())
+    np.testing.assert_array_equal(words, pw.numpy())
     if cap == 2:
         assert (decision == 2).any(), "the capped case must reach the cap"
 
@@ -212,10 +216,12 @@ def test_host_round_loop_matches_plain_driver_per_adversary(host, case):
                     coin=coin, round_cap=cap, seed=3 * n + cap,
                     delivery="urn2").validate()
     ids = ids_with_faulty_zero(cfg, B, n + cap)
-    rounds, decision = _host_run(host, cfg, ids)
-    pr, pd = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids.astype(np.int32)))
+    rounds, decision, words = _host_run(host, cfg, ids)
+    pr, pd, pw = fused_round.run_chunk_plain(cfg, torch.as_tensor(ids.astype(np.int32)),
+                                             state=True)
     np.testing.assert_array_equal(rounds, pr.numpy())
     np.testing.assert_array_equal(decision, pd.numpy())
+    np.testing.assert_array_equal(words, pw.numpy())
 
 
 def test_host_wire_values_match_inject(host):
